@@ -1,0 +1,86 @@
+"""Builds the package's CUDA sources into one shared library.
+
+The sources in ``dabjax_torch/csrc`` are compiled with ``nvcc`` for
+``sm_90a`` into ``dabjax_torch/build/`` at first use, cached by a hash
+of the sources and flags, and loaded with ``ctypes`` (plain C interface,
+no PyTorch headers).  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+__all__ = ["load_library", "build_seconds"]
+
+_PKG = pathlib.Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: wall seconds the last build took (0.0 when the cached library was used)
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernels; declares every entry
+    point's argument and return types."""
+    global build_seconds
+    sources = _sources()
+    out = BUILD / f"libdabjax_torch_{_digest(sources)}.so"
+    if not out.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        try:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            os.replace(tmp, out)     # atomic: concurrent builders agree
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.dabjax_viterbi_forward.argtypes = [vp, vp, vp, i, i, vp]
+    lib.dabjax_viterbi_forward.restype = i
+    lib.dabjax_viterbi_traceback.argtypes = [vp, vp, i, i, i, vp]
+    lib.dabjax_viterbi_traceback.restype = i
+    return lib
