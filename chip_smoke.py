@@ -13,24 +13,44 @@ non-zero exit at the first failure:
    2304 and 9216, then at the main-path shapes (MSC: 4428 codewords of
    2304 bits; FIC: 384 of 768), all bit-exact; each timed with CUDA
    events beside its plain version;
-3. pipeline: the 12 x 96 kbit/s EEP-A ensemble (Mode I, 96 frames, clean
+3. word kernels: the radix-4 word forward (K3) in the formats i8mxu, i8
+   and f32 against its plain torch version (words equal element for
+   element) and K3 + the word traceback (K4) against the numpy decoder,
+   on the same three inputs at nbits 100, 101, 768, 1024, 2304 and 9216,
+   plus f32 soft at +-300; then at the main-path shapes (MSC and FIC, as
+   in phase 2) words, ``last`` and bits equal their plain versions, K3 and
+   K4 timed there beside them;
+4. pipeline: the 12 x 96 kbit/s EEP-A ensemble (Mode I, 96 frames, clean
    golden IQ) through ``full_ensemble_pipeline``: every FIB CRC passes and
    every subchannel's logical frames equal the transmitted payload;
-4. receiver: ``Receiver.run()`` over a mixed MP2/DAB+ ensemble (u8 upload
-   path, 64-frame blocks, audio decode on), and one all-zero block.
+5. receiver: ``Receiver.run()`` over a mixed MP2/DAB+ ensemble (u8 upload
+   path, 64-frame blocks, audio decode on), and one all-zero block;
+6. formats: the phase-4 ensemble again with ``SOFT_FMT`` i8mxu, then f32
+   (K3 + K4 in place of K1 + K2), payload-exact;
+7. stages: ``pipeline_stages`` on the phase-4 ensemble under i8lane and
+   i8mxu, device ms of each prefix and of each stage;
+8. entry points: ``python -m dabjax_torch info`` and ``scan`` in-process
+   on a rendered ``.raw`` file, and a 3-channel ``MultiReceiver`` bank
+   with one device-to-host copy per block period;
+9. trace: ``device_trace`` around one phase-4 batch writes a Chrome trace
+   holding the CUDA kernels.
 
-The kernels' launch counts are reset just before phases 3-4 and read just
-after; each kernel must have run there.  The last two lines are a JSON
-object describing each kernel and the result line
-``{"ok": true, "device": {...}}``.  Needs no network; uses one card.
+The kernels' launch counts are reset just before phases 4-5 (K1, K2) and
+phase 6 (K3, K4) and read just after; each kernel must have run there.
+The last two lines are a JSON object describing each kernel and the
+result line ``{"ok": true, "device": {...}}``.  Needs no network; uses
+one card.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -123,6 +143,103 @@ def phase_kernels(dev, report):
                              k2=(err_k2, k2_ms, k2_plain))
 
 
+def phase_words(dev, report):
+    import numpy as np
+    import torch
+    from dabjax.fec.viterbi import viterbi_decode_np
+    from dabjax_torch.fec import viterbi, viterbi_cuda as vc
+
+    def k3(s, nbits, fmt):
+        return vc.viterbi_forward_words_cuda(vc.pair_soft(s, nbits, fmt),
+                                             fmt)
+
+    rng = np.random.default_rng(2025)
+    for nbits in (100, 101, 768, 1024, 2304, 9216):
+        # coded, near-tie and pure-noise codewords in one batch
+        soft = np.concatenate([c for _, c in _soft_cases(nbits, rng)])
+        want = viterbi_decode_np(soft, nbits)
+        s = torch.from_numpy(soft).to(dev)
+        for fmt in vc.WORD_FORMATS:
+            words, last = k3(s, nbits, fmt)
+            plain_w, plain_l = viterbi.viterbi_forward_words_torch(s, nbits,
+                                                                   fmt)
+            _check(torch.equal(words, plain_w) and torch.equal(last, plain_l),
+                   f"K3 words != plain at nbits={nbits} ({fmt})")
+            bits = vc.viterbi_traceback_words_cuda(words, last, nbits)
+            _check(np.array_equal(bits.cpu().numpy(), want),
+                   f"K3+K4 != numpy at nbits={nbits} ({fmt})")
+        print(f"words: nbits={nbits} coded/near_tie/pure_noise: K3 words "
+              "equal plain, K3+K4 bits equal numpy (i8mxu, i8, f32)")
+
+    # soft beyond the int8 range: f32 does not clip, i8 does
+    for nbits in (101, 768):
+        soft = rng.integers(-300, 301, (6, 4 * (nbits + 6))).astype(
+            np.float32)
+        s = torch.from_numpy(soft).to(dev)
+        for fmt, ref in (("f32", soft), ("i8", np.clip(soft, -127, 127))):
+            words, last = k3(s, nbits, fmt)
+            plain_w, plain_l = viterbi.viterbi_forward_words_torch(s, nbits,
+                                                                   fmt)
+            _check(torch.equal(words, plain_w) and torch.equal(last, plain_l),
+                   f"K3 words != plain at +-300, nbits={nbits} ({fmt})")
+            bits = vc.viterbi_traceback_words_cuda(words, last, nbits)
+            _check(np.array_equal(bits.cpu().numpy(),
+                                  viterbi_decode_np(ref, nbits)),
+                   f"K3+K4 != numpy at +-300, nbits={nbits} ({fmt})")
+    print("words: +-300 soft: f32 (unclipped) and i8 (clipped) exact")
+
+    # the main-path shapes, as phase_kernels: words, last and bits against
+    # the plain versions
+    for label, B, nbits in (("msc", 4428, 2304), ("fic", 384, 768)):
+        soft = torch.from_numpy(rng.integers(-127, 128, (B, 4 * (nbits + 6)))
+                                .astype(np.float32)).to(dev)
+        for fmt in vc.WORD_FORMATS:
+            x = vc.pair_soft(soft, nbits, fmt)
+            words, last = vc.viterbi_forward_words_cuda(x, fmt)
+            plain_w, plain_l = viterbi.viterbi_forward_words_torch(
+                soft, nbits, fmt)
+            err3 = max(int((words.long() - plain_w.long()).abs().max()),
+                       int((last - plain_l).abs().max()))
+            bits = vc.viterbi_traceback_words_cuda(words, last, nbits)
+            plain_bits = viterbi.viterbi_traceback_words_torch(words, last,
+                                                               nbits)
+            err4 = int((bits - plain_bits).abs().max())
+            _check(err3 == 0, f"K3 words differ at the {label} shape ({fmt})")
+            _check(err4 == 0, f"K4 bits differ at the {label} shape ({fmt})")
+            k3_ms = _cuda_ms(lambda: vc.viterbi_forward_words_cuda(x, fmt),
+                             10)
+            k3_plain = _cuda_ms(
+                lambda: viterbi.viterbi_forward_words_torch(soft, nbits, fmt),
+                1)
+            k4_ms = _cuda_ms(
+                lambda: vc.viterbi_traceback_words_cuda(words, last, nbits),
+                10)
+            k4_plain = _cuda_ms(
+                lambda: viterbi.viterbi_traceback_words_torch(words, last,
+                                                              nbits), 1)
+            print(f"words: {label} B={B} nbits={nbits} {fmt}: K3 "
+                  f"{k3_ms:.4f} ms (plain {k3_plain:.2f} ms), K4 "
+                  f"{k4_ms:.4f} ms (plain {k4_plain:.2f} ms), exact")
+            report[f"words_{label}_{fmt}"] = dict(
+                k3=(err3, k3_ms, k3_plain), k4=(err4, k4_ms, k4_plain))
+
+
+def _check_ensemble(ok, bits, golden):
+    """Every FIB CRC passes and every logical frame equals the payload."""
+    import numpy as np
+    p, n_frames, mod = golden["p"], golden["n_frames"], golden["mod"]
+    ok, bits = ok.cpu().numpy(), bits.cpu().numpy()
+    _check(ok.shape == (n_frames, 12) and ok.all(), "FIB CRC failures")
+    n_lf = n_frames * p.cifs_per_frame - 15
+    _check(bits.shape == (12, n_lf, 2304), f"bits shape {bits.shape}")
+    for s in golden["services"]:
+        for t in range(n_lf):
+            _check(np.array_equal(bits[s.subch_id, t],
+                                  mod.payload_bits(s.subch_id, t)),
+                   f"payload mismatch subch {s.subch_id} frame {t}")
+    return ok.size, n_lf
+
+
 def phase_pipeline(dev, report):
     import numpy as np
     import torch
@@ -152,23 +269,17 @@ def phase_pipeline(dev, report):
     rows = rows.to(dev)
     print(f"pipeline: golden IQ rendered in {time.perf_counter() - t0:.1f} s")
 
+    golden = dict(p=p, n_frames=n_frames, mod=mod, services=services,
+                  geoms=geoms, rows=rows)
     pipe = full_ensemble_pipeline(p, geoms, device=dev)
-    ok, bits = pipe(rows)
-    ok, bits = ok.cpu().numpy(), bits.cpu().numpy()
-    _check(ok.shape == (n_frames, 12) and ok.all(), "FIB CRC failures")
-    n_lf = n_frames * p.cifs_per_frame - 15
-    _check(bits.shape == (12, n_lf, 2304), f"bits shape {bits.shape}")
-    for s in services:
-        for t in range(n_lf):
-            _check(np.array_equal(bits[s.subch_id, t],
-                                  mod.payload_bits(s.subch_id, t)),
-                   f"payload mismatch subch {s.subch_id} frame {t}")
+    n_fib, n_lf = _check_ensemble(*pipe(rows), golden)
     sec = _cuda_ms(lambda: pipe(rows), 5) / 1e3
     rt = n_frames * p.T_F / FS / sec
     print(f"pipeline: 12 subchannels x {n_lf} logical frames exact, "
-          f"{ok.size} FIBs pass CRC; {sec:.4f} s per {n_frames}-frame "
+          f"{n_fib} FIBs pass CRC; {sec:.4f} s per {n_frames}-frame "
           f"batch = {rt:.2f}x realtime")
     report["pipeline"] = dict(seconds_per_batch=sec, realtime=rt)
+    return golden
 
 
 def _loop_iq(services, n_frames):
@@ -225,6 +336,162 @@ def phase_receiver(dev, report):
                f"zero block ({kind}) gave non-zero or non-finite soft bits")
         _check(blob.dtype == torch.uint8, "blob dtype")
     print("receiver: all-zero blocks give finite zero soft bits")
+    return iq
+
+
+def phase_formats(dev, report, golden):
+    """The phase-4 ensemble with the radix-4 word kernels (K3 + K4)."""
+    from dabjax_torch.fec import viterbi_cuda as vc
+    from dabjax_torch.runtime.pipeline import full_ensemble_pipeline
+
+    p, n_frames = golden["p"], golden["n_frames"]
+    rows = golden["rows"]
+    pipe = full_ensemble_pipeline(p, golden["geoms"], device=dev)
+    out = {}
+    try:
+        for fmt in ("i8mxu", "f32"):
+            vc.SOFT_FMT = fmt
+            before = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
+                      vc.WORDS_FORWARD_LAUNCHES, vc.WORDS_TRACEBACK_LAUNCHES)
+            n_fib, n_lf = _check_ensemble(*pipe(rows), golden)
+            after = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
+                     vc.WORDS_FORWARD_LAUNCHES, vc.WORDS_TRACEBACK_LAUNCHES)
+            _check(after[:2] == before[:2],
+                   f"{fmt}: K1/K2 launched ({before} -> {after})")
+            _check(after[2] > before[2] and after[3] > before[3],
+                   f"{fmt}: K3/K4 not launched ({before} -> {after})")
+            sec = _cuda_ms(lambda: pipe(rows), 5) / 1e3
+            print(f"formats: {fmt}: 12 subchannels x {n_lf} logical frames "
+                  f"exact, {n_fib} FIBs pass CRC, through K3+K4 only; "
+                  f"{sec:.4f} s per {n_frames}-frame batch = "
+                  f"{n_frames * p.T_F / FS / sec:.2f}x realtime")
+            out[fmt] = dict(seconds_per_batch=sec)
+    finally:
+        vc.SOFT_FMT = "i8lane"
+    report["formats"] = out
+
+
+def phase_stages(dev, report, golden):
+    import math
+    from dabjax_torch.fec import viterbi_cuda as vc
+    from dabjax_torch.runtime.pipeline import pipeline_stages
+
+    p, rows = golden["p"], golden["rows"]
+    out = {}
+    try:
+        for fmt in ("i8lane", "i8mxu"):
+            vc.SOFT_FMT = fmt
+            fns = pipeline_stages(p, golden["geoms"], device=dev)
+            for name, fn in fns.items():
+                v = float(fn(rows))
+                _check(math.isfinite(v), f"stage {name} ({fmt}) gave {v}")
+            ms = {name: _cuda_ms(lambda f=fn: f(rows), 5)
+                  for name, fn in fns.items()}
+            stages = {
+                "demod": ms["demod"],
+                "fic": ms["fic"] - ms["demod"],
+                "deint_depunct": ms["deint_depunct"] - ms["fic"],
+                "viterbi_forward": ms["viterbi_forward"] - ms["deint_depunct"],
+                "traceback_dispersal": ms["full"] - ms["viterbi_forward"]}
+            print(f"stages ({fmt}): prefix ms " + ", ".join(
+                f"{k} {v:.4f}" for k, v in ms.items()))
+            print(f"stages ({fmt}): stage ms " + ", ".join(
+                f"{k} {v:.4f}" for k, v in stages.items()))
+            out[fmt] = dict(prefix_ms=ms, stage_ms=stages)
+    finally:
+        vc.SOFT_FMT = "i8lane"
+    report["stages"] = out
+
+
+def phase_entry(dev, report, loop_iq):
+    import numpy as np
+    import bench
+    from dabjax.runtime.config import ReceiverConfig
+    from dabjax.tx.fig import ServiceSpec
+    from dabjax_torch import cli, testing
+    from dabjax_torch.parallel.multihost import MultiReceiver
+
+    services = [ServiceSpec(label="SMOKE MP2", sid=0x9101, subch_id=1,
+                            start_addr=0, bitrate=96, protection="EEP-A",
+                            prot_level=3, kind="DAB"),
+                ServiceSpec(label="SMOKE PLUS", sid=0x9102, subch_id=2,
+                            start_addr=72, bitrate=96, protection="EEP-A",
+                            prot_level=3, kind="DAB+")]
+    mod = testing.golden_modulator(mode=1, services=services,
+                                   ensemble_label="SMOKE ENSEMBLE",
+                                   amplitude=0.3)
+    iq = mod.iq(12, snr_db=40.0, seed=1)
+    u8 = np.empty(2 * iq.shape[0], np.uint8)
+    u8[0::2] = np.clip(np.real(iq) * 128 + 128, 0, 255).astype(np.uint8)
+    u8[1::2] = np.clip(np.imag(iq) * 128 + 128, 0, 255).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "smoke.raw")
+        with open(raw, "wb") as f:
+            f.write(u8.tobytes())
+        for argv in (["info", raw, "--blocks", "2"],
+                     ["scan", f"12C={raw}", "5A=null", "--blocks", "2"]):
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                rc = cli.main(argv)
+            text = buf.getvalue()
+            print("\n".join(f"cli {argv[0]}: {line}"
+                            for line in text.splitlines()))
+            _check(rc == 0, f"cli {argv[0]} exited {rc}")
+            if argv[0] == "info":
+                _check("'SMOKE ENSEMBLE'" in text and "SMOKE MP2" in text
+                       and "SMOKE PLUS" in text, "info: service list")
+            else:
+                _check("12C: 'SMOKE ENSEMBLE' (2 services" in text
+                       and "5A: no signal" in text, "scan: results")
+
+    bank = MultiReceiver({f"ch{i}": bench._LoopSource(loop_iq)
+                          for i in range(3)},
+                         ReceiverConfig(frames_per_block=64), device=dev)
+    pulls = []
+    pull = bank._pull
+
+    def counted(blob):
+        pulls.append(int(blob.shape[0]))
+        return pull(blob)
+
+    bank._pull = counted
+    try:
+        t0 = time.perf_counter()
+        metrics = bank.run(3)
+        dt = time.perf_counter() - t0
+    finally:
+        bank.close()
+    for name, m in metrics.items():
+        _check(m.fic_ratio == 1.0, f"bank {name}: fic_ratio {m.fic_ratio}")
+        _check(m.au_ok > 0 and m.au_bad == 0, f"bank {name}: au")
+    _check(len(pulls) == 3, f"bank: {len(pulls)} pulls for 3 blocks")
+    print(f"bank: 3 channels x 3 blocks in {dt:.2f} s wall, fic 100 %, "
+          f"one pull per block ({pulls[0]} bytes)")
+    report["bank"] = dict(wall_s=dt, pulls=len(pulls))
+
+
+def phase_trace(dev, report, golden):
+    import torch
+    from dabjax_torch.runtime.pipeline import full_ensemble_pipeline
+    from dabjax_torch.runtime.profiling import device_trace
+
+    pipe = full_ensemble_pipeline(golden["p"], golden["geoms"], device=dev)
+    rows = golden["rows"]
+    pipe(rows)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as prof:
+            pipe(rows)
+            torch.cuda.synchronize()
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = " ".join(e.get("name", "") for e in kernels)
+    _check(kernels and "forward_acs" in names and "traceback" in names,
+           "trace holds no Viterbi kernel events")
+    busy = sum(float(e.get("dur", 0.0)) for e in kernels) / 1e3
+    print(f"trace: {len(kernels)} CUDA kernel events, {busy:.3f} ms of "
+          "kernel time in one batch")
+    report["trace"] = dict(kernel_events=len(kernels), kernel_ms=busy)
 
 
 def main() -> int:
@@ -255,31 +522,64 @@ def main() -> int:
 
     report = {}
     phase_kernels(dev, report)
+    phase_words(dev, report)
     vc.reset_launches()
-    phase_pipeline(dev, report)
-    phase_receiver(dev, report)
+    golden = phase_pipeline(dev, report)
+    loop_iq = phase_receiver(dev, report)
     torch.cuda.synchronize()
     launches = {"k1": vc.FORWARD_LAUNCHES, "k2": vc.TRACEBACK_LAUNCHES}
     _check(all(n > 0 for n in launches.values()),
            f"main path did not launch every kernel: {launches}")
+    vc.reset_launches()
+    phase_formats(dev, report, golden)
+    torch.cuda.synchronize()
+    launches.update(k3=vc.WORDS_FORWARD_LAUNCHES,
+                    k4=vc.WORDS_TRACEBACK_LAUNCHES)
+    _check(launches["k3"] > 0 and launches["k4"] > 0,
+           f"the word-format path did not launch K3/K4: {launches}")
     print(f"launches on the main path: {launches}")
+    phase_stages(dev, report, golden)
+    phase_entry(dev, report, loop_iq)
+    phase_trace(dev, report, golden)
 
     src = "dabjax_torch/csrc/viterbi.cu"
-    msc = report["msc"]
+    # times at the MSC shape (i8mxu for K3/K4); errors the largest over
+    # both main-path shapes (and every word format)
+    msc, words = report["msc"], report["words_msc_i8mxu"]
+    checked = {"k1": [report["msc"], report["fic"]],
+               "k2": [report["msc"], report["fic"]],
+               "k3": [report[f"words_{s}_{f}"] for s in ("msc", "fic")
+                      for f in vc.WORD_FORMATS]}
+    checked["k4"] = checked["k3"]
+    err = {k: max(r[k][0] for r in rs) for k, rs in checked.items()}
     kernels = [
         {"name": "viterbi_forward_acs", "route": "cuda", "source": src,
          "replaces": "dabjax/fec/viterbi_pallas.py:85",
-         "launches": launches["k1"], "max_abs_err": msc["k1"][0],
+         "launches": launches["k1"], "max_abs_err": err["k1"],
          "ms": msc["k1"][1], "plain_ms": msc["k1"][2]},
         {"name": "viterbi_traceback", "route": "cuda", "source": src,
          "replaces": "dabjax/fec/viterbi_pallas.py:218",
-         "launches": launches["k2"], "max_abs_err": msc["k2"][0],
+         "launches": launches["k2"], "max_abs_err": err["k2"],
          "ms": msc["k2"][1], "plain_ms": msc["k2"][2]},
+        {"name": "viterbi_forward_acs_words", "route": "cuda", "source": src,
+         "replaces": "dabjax/fec/viterbi_pallas.py:149",
+         "launches": launches["k3"], "max_abs_err": err["k3"],
+         "ms": words["k3"][1], "plain_ms": words["k3"][2]},
+        {"name": "viterbi_traceback_words", "route": "cuda", "source": src,
+         "replaces": "dabjax/fec/viterbi_pallas.py:218",
+         "launches": launches["k4"], "max_abs_err": err["k4"],
+         "ms": words["k4"][1], "plain_ms": words["k4"][2]},
     ]
     print(json.dumps({"kernels": kernels, "card": card,
                       "pipeline": report["pipeline"],
                       "receiver": report["receiver"],
-                      "fic_shape": report["fic"]}))
+                      "fic_shape": report["fic"],
+                      "word_formats": {f"{s}_{f}": report[f"words_{s}_{f}"]
+                                       for s in ("msc", "fic")
+                                       for f in vc.WORD_FORMATS},
+                      "formats": report["formats"],
+                      "stages": report["stages"],
+                      "bank": report["bank"], "trace": report["trace"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,8 @@ from dabjax.fec import puncture as puncture_np
 from dabjax_torch.fec import prbs, puncture, viterbi
 from dabjax_torch.msc.deinterleave import HISTORY, time_deinterleave
 
-__all__ = ["SubchGeometry", "subch_puncture_mask", "decode_subchannel",
+__all__ = ["SubchGeometry", "subch_profile", "subch_puncture_mask",
+           "decode_subchannel",
            "pack_bits_u8", "EnsembleDecoder"]
 
 
@@ -49,7 +50,8 @@ class SubchGeometry:
                 self.prot_level)
 
 
-def _profile(protection: str, bitrate: int, prot_level: int):
+def subch_profile(protection: str, bitrate: int, prot_level: int):
+    """(lengths, pis) of a subchannel's puncturing profile."""
     if protection == "UEP":
         return puncture_np.uep_profile(bitrate, prot_level)
     return puncture_np.eep_profile(bitrate, prot_level, protection[-1])
@@ -60,7 +62,7 @@ def subch_puncture_mask(protection: str, bitrate: int, prot_level: int
                         ) -> np.ndarray:
     """Keep-mask of a subchannel's profile; raises ValueError/KeyError for
     a profile the decoder lacks."""
-    return puncture_np.puncture_mask(*_profile(protection, bitrate,
+    return puncture_np.puncture_mask(*subch_profile(protection, bitrate,
                                                prot_level))
 
 
@@ -68,7 +70,8 @@ def decode_subchannel(subch_soft: torch.Tensor, g: SubchGeometry,
                       deinterleave: bool = True) -> torch.Tensor:
     """``subch_soft`` [..., T, length_cus*64] -> [..., T - 15, 24*bitrate]
     int32 logical-frame bits (output t is transmitted logical frame t)."""
-    lengths, pis = _profile(g.protection, g.bitrate, g.prot_level)
+    lengths, pis = subch_profile(g.protection, g.bitrate,
+                                g.prot_level)
     soft = time_deinterleave(subch_soft) if deinterleave else subch_soft
     full = puncture.depuncture_profile(soft, lengths, pis)
     return prbs.disperse(viterbi.viterbi_decode(full, 24 * g.bitrate))

@@ -15,13 +15,16 @@ import torch
 from torch import nn
 
 from dabjax.constants import CU_BITS, DabParams
+from dabjax_torch.fec import puncture, viterbi
 from dabjax_torch.fic.fic_decoder import decode_fic
 from dabjax_torch.msc.cif import cifs_from_soft
-from dabjax_torch.msc.subchannel import SubchGeometry, decode_subchannel
+from dabjax_torch.msc.deinterleave import time_deinterleave
+from dabjax_torch.msc.subchannel import (SubchGeometry, decode_subchannel,
+                                         subch_profile)
 from dabjax_torch.ofdm import demod
 
 __all__ = ["FramePipeline", "FullEnsemblePipeline", "frame_pipeline",
-           "full_ensemble_pipeline", "example_rows"]
+           "full_ensemble_pipeline", "pipeline_stages", "example_rows"]
 
 
 def _complex_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -91,6 +94,67 @@ def frame_pipeline(p: DabParams, *, device) -> FramePipeline:
 def full_ensemble_pipeline(p: DabParams, geoms: Sequence[SubchGeometry],
                            *, device) -> FullEnsemblePipeline:
     return FullEnsemblePipeline(p, geoms, device=device)
+
+
+def pipeline_stages(p: DabParams, geoms: Sequence[SubchGeometry], *,
+                    device):
+    """Cumulative sub-pipelines of :func:`full_ensemble_pipeline` for a
+    per-stage breakdown (port of ``dabjax.runtime.pipeline.
+    pipeline_stages``).
+
+    Returns an ordered dict of name -> fn(rows) -> 0-d float32 tensor;
+    each fn is a strict prefix of the full pipeline and folds every output
+    it computes into its value, so no stage is skipped.  Stage cost is the
+    difference of adjacent prefix times: demod | fic | deint_depunct |
+    viterbi_forward | traceback_dispersal (= full - viterbi_forward).  The
+    ``viterbi_forward`` prefix folds in ``dec[0, 0]`` of the decision
+    layout ``viterbi_cuda.SOFT_FMT`` gives (one element keeps the forward
+    pass without a reduction over the whole plane)."""
+    full_pipe = FullEnsemblePipeline(p, geoms, device=device)
+    proto, idx = full_pipe.proto, full_pipe.idx
+    lengths, pis = subch_profile(proto.protection, proto.bitrate,
+                                 proto.prot_level)
+    dev = full_pipe.device
+
+    def _front(rows):
+        x = _complex_rows(_on(rows, dev))
+        fine = demod.fine_cfo_estimate(x, p)
+        return demod.demodulate_frames_cfo(x, fine, p)[0]
+
+    def _fic(soft):
+        fibs, ok = decode_fic(soft[:, : p.fic_symbols, :], p)
+        return (fibs.sum().to(torch.float32)
+                + ok.sum().to(torch.float32))
+
+    def _prep(soft):
+        slices = cifs_from_soft(soft, p)[:, idx].transpose(0, 1)
+        return puncture.depuncture_profile(time_deinterleave(slices),
+                                           lengths, pis)
+
+    def s_demod(rows):
+        return _front(rows).sum()
+
+    def s_fic(rows):
+        soft = _front(rows)
+        return soft.sum() + _fic(soft)
+
+    def s_prep(rows):
+        soft = _front(rows)
+        return soft.sum() + _fic(soft) + _prep(soft).sum()
+
+    def s_forward(rows):
+        soft = _front(rows)
+        full = _prep(soft)
+        dec, _ = viterbi.viterbi_forward_words(full, 24 * proto.bitrate)
+        return (soft.sum() + _fic(soft) + full.sum()
+                + dec[0, 0].to(torch.float32).sum())
+
+    def s_full(rows):
+        ok, bits = full_pipe(rows)
+        return ok.sum().to(torch.float32) + bits.sum().to(torch.float32)
+
+    return {"demod": s_demod, "fic": s_fic, "deint_depunct": s_prep,
+            "viterbi_forward": s_forward, "full": s_full}
 
 
 def example_rows(p: DabParams, n_frames: int = 2, seed: int = 0, *,

@@ -116,9 +116,6 @@ def test_plain_viterbi_bit_exact(name):
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """No fallback: the kernel wrappers raise on a CPU tensor."""
-    soft = torch.zeros((1, 4 * 106))
-    with pytest.raises(ValueError, match="CUDA"):
-        viterbi_cuda.viterbi_decode_cuda(soft, 100)
     with pytest.raises(ValueError, match="CUDA"):
         viterbi_cuda.viterbi_forward_cuda(torch.zeros((1, 106, 4),
                                                       dtype=torch.int8))

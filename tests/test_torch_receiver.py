@@ -174,6 +174,28 @@ rows = np.stack([iq[u0: u0 + min_frame_samples(p)]]).view(np.float32)
 rows = torch.from_numpy(rows.reshape(1, -1, 2))
 _, _, ok, _ = frame_pipeline(p, device="cpu")(rows)
 assert bool(ok.all())
+new = {"dabjax_torch.cli", "dabjax_torch.__main__",
+       "dabjax_torch.parallel.multihost", "dabjax_torch.runtime.scan",
+       "dabjax_torch.runtime.profiling"}
+assert new <= set(mods), new - set(mods)
+from dabjax_torch.fec import viterbi, viterbi_cuda
+from dabjax.fec.viterbi import viterbi_decode_np
+soft = np.random.default_rng(0).integers(-127, 128, (2, 4 * 27))
+for fmt in ("i8mxu", "i8", "f32"):
+    viterbi_cuda.SOFT_FMT = fmt
+    dec, last = viterbi.viterbi_forward_words(torch.from_numpy(soft), 21)
+    bits = viterbi.viterbi_traceback_words(dec, last, 21)
+    assert (bits.numpy() == viterbi_decode_np(soft, 21)).all(), fmt
+import contextlib, io
+from dabjax_torch import cli
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert cli.main(["scan", "5A=null", "--blocks", "1"]) == 1
+assert "5A: no signal" in out.getvalue()
+from dabjax_torch.parallel.multihost import MultiReceiver
+from dabjax.io.sources import NullSource
+bank = MultiReceiver({"5A": NullSource()}, None, device="cpu")
+assert not bank.run(1)["5A"].synced
+bank.close()
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k == "jax" or k.startswith("jax.")
                                 or k.startswith("jaxlib"))]
