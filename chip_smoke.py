@@ -33,10 +33,21 @@ non-zero exit at the first failure:
    on a rendered ``.raw`` file, and a 3-channel ``MultiReceiver`` bank
    with one device-to-host copy per block period;
 9. trace: ``device_trace`` around one phase-4 batch writes a Chrome trace
-   holding the CUDA kernels.
+   holding the CUDA kernels;
+10. probes (``dabjax_torch.tools``, the ports of the TPU probes in
+    ``tools/``) at the main-path shape, 4428 codewords of 2304 bits: the
+    stage-stripped word forward in its four modes (dot_store, repadd,
+    maxtree, full) against its plain version, words equal, and ``full``
+    against K3 "i8" on the pair steps < T2; K3 "i8" on prepped input
+    against its plain version; the copy kernel and the int8
+    decision-plane kernel bit for bit against theirs; each timed beside
+    its plain version; then each probe's ``main()`` in process, one
+    printed line per case.
 
-The kernels' launch counts are reset just before phases 4-5 (K1, K2) and
-phase 6 (K3, K4) and read just after; each kernel must have run there.
+The kernels' launch counts are reset just before phases 4-5 (K1, K2),
+phase 6 (K3, K4) and the probes' ``main()`` runs of phase 10 (the probe
+kernels, and K3 for ``vit_split2``) and read just after; each kernel
+must have run there.
 The last two lines are a JSON object describing each kernel and the
 result line ``{"ok": true, "device": {...}}``.  Needs no network; uses
 one card.
@@ -68,17 +79,9 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _cuda_ms(fn, reps: int) -> float:
-    import torch
-    fn()                                             # warm
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    """Mean ms of ``fn()`` by CUDA events after a warm-up call."""
+    from dabjax_torch.tools import cuda_ms
+    return cuda_ms(fn, reps)
 
 
 def _soft_cases(nbits: int, rng):
@@ -494,6 +497,122 @@ def phase_trace(dev, report, golden):
     report["trace"] = dict(kernel_events=len(kernels), kernel_ms=busy)
 
 
+def _probe_checks(dev, report):
+    """Phase 10, checks: every probe kernel against its plain version at
+    the main-path shape, each timed beside it."""
+    import torch
+    from dabjax_torch import tools
+    from dabjax_torch.fec import viterbi, viterbi_cuda as vc
+    from dabjax_torch.tools import hbm_probe, vit_split2
+    from dabjax_torch.tools import vit_variants2 as vv2
+
+    B, nbits = tools.CODEWORDS, tools.NBITS
+    T2 = -(-(nbits + 6) // 2)
+    soft = torch.from_numpy(tools.soft_bits(B, nbits, seed=7)).to(dev)
+
+    def err(a, b):
+        return int((a.long() - b.long()).abs().max())
+
+    # vit_variants2: each stage against its plain version, full against K3
+    x = vv2.padded_pair_soft(soft, nbits)
+    modes, stage_err = {}, 0
+    for mode in vv2.MODES:
+        e = err(vv2.forward_words_stage_cuda(x, mode),
+                vv2.forward_words_stage_torch(x, mode))
+        _check(e == 0, f"vit_variants2 {mode}: words differ from plain")
+        stage_err = max(stage_err, e)
+        modes[mode] = dict(
+            ms=_cuda_ms(lambda: vv2.forward_words_stage_cuda(x, mode), 10),
+            plain_ms=_cuda_ms(lambda: vv2.forward_words_stage_torch(x, mode),
+                              1))
+        print(f"probes: vit_variants2 {mode}: {modes[mode]['ms']:.4f} ms "
+              f"(plain {modes[mode]['plain_ms']:.2f} ms), exact")
+    k3_words, _ = vc.viterbi_forward_words_cuda(
+        vit_split2.prep(soft, nbits), "i8")
+    full = vv2.forward_words_stage_cuda(x, "full")
+    _check(torch.equal(vv2.mask_padding(full, T2), k3_words),
+           "vit_variants2 full != K3 i8 words on pair steps < T2")
+    print(f"probes: vit_variants2 full equals K3 i8 on the {T2} pair "
+          f"steps < T2 (of {x.shape[1]})")
+    report["vit_variants2"] = dict(err=stage_err, modes=modes)
+
+    # vit_split2: K3 i8 on prepped input against its plain version
+    words, last = vit_split2.kernel_only(vit_split2.prep(soft, nbits))
+    plain_w, plain_l = viterbi.viterbi_forward_words_torch(soft, nbits, "i8")
+    e = max(err(words, plain_w), err(last, plain_l))
+    _check(e == 0, "vit_split2: K3 i8 on prepped input != plain")
+    xp = vit_split2.prep(soft, nbits)
+    split = dict(
+        err=e, prep_ms=_cuda_ms(lambda: vit_split2.prep(soft, nbits), 10),
+        ms=_cuda_ms(lambda: vit_split2.kernel_only(xp), 10),
+        full_ms=_cuda_ms(lambda: vit_split2.full_forward(soft, nbits), 10),
+        plain_ms=_cuda_ms(lambda: viterbi.viterbi_forward_words_torch(
+            soft, nbits, "i8"), 1))
+    print(f"probes: vit_split2: prep {split['prep_ms']:.4f} ms, kernel "
+          f"{split['ms']:.4f} ms, full {split['full_ms']:.4f} ms (plain "
+          f"{split['plain_ms']:.2f} ms), exact")
+    report["vit_split2"] = split
+
+    # hbm_probe: copy and plane bit for bit
+    xb = hbm_probe.input_block().to(dev)
+    xb += torch.rand_like(xb)                # arbitrary floats for the copy
+    got, want = hbm_probe.scale_copy_cuda(xb), hbm_probe.scale_copy_torch(xb)
+    e_copy = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    _check(e_copy == 0, f"copy kernel: {e_copy} words differ from x * 1.000001")
+    xb = hbm_probe.input_block(seed=8).to(dev)
+    e_plane = err(hbm_probe.decision_plane_cuda(xb),
+                  hbm_probe.decision_plane_torch(xb))
+    _check(e_plane == 0, "decision plane differs from its plain version")
+    n = xb.numel()
+    plane_bytes = n // 16 * hbm_probe.PLANE_ROWS
+    for key, fn, plain, nbytes, e in (
+            ("copy", hbm_probe.scale_copy_cuda, hbm_probe.scale_copy_torch,
+             8 * n, e_copy),
+            ("plane", hbm_probe.decision_plane_cuda,
+             hbm_probe.decision_plane_torch, plane_bytes, e_plane)):
+        ms = _cuda_ms(lambda: fn(xb), 10)
+        plain_ms = _cuda_ms(lambda: plain(xb), 10)
+        report[f"hbm_{key}"] = dict(err=e, ms=ms, plain_ms=plain_ms,
+                                    gb_per_s=nbytes / ms / 1e6,
+                                    plain_gb_per_s=nbytes / plain_ms / 1e6)
+        print(f"probes: hbm {key}: {ms:.4f} ms = {nbytes / ms / 1e6:.1f} "
+              f"GB/s (plain {plain_ms:.4f} ms), bit for bit")
+
+
+def phase_probes(dev, report):
+    """Phase 10: the probe kernels checked, then each probe's main() run
+    in process with the launch counts set to 0 just before."""
+    import torch
+    from dabjax_torch.fec import viterbi_cuda as vc
+    from dabjax_torch.tools import hbm_probe, vit_split2
+    from dabjax_torch.tools import vit_variants2 as vv2
+
+    _probe_checks(dev, report)
+    cases = {vv2: 2 * len(vv2.MODES), vit_split2: 4, hbm_probe: 4}
+    torch.cuda.synchronize()
+    vc.reset_launches()
+    vv2.reset_launches()
+    hbm_probe.reset_launches()
+    for mod, n_cases in cases.items():
+        name = mod.__name__.rsplit(".", 1)[1]
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = mod.main()
+        lines = buf.getvalue().splitlines()
+        print("\n".join(f"probe {name}: {line}" for line in lines))
+        _check(rc == 0, f"{name}.main() returned {rc}")
+        _check(len(lines) == n_cases and all(" ms" in s for s in lines),
+               f"{name}.main() printed {len(lines)} lines, not {n_cases}")
+    torch.cuda.synchronize()
+    launches = {"vit_variants2": vv2.LAUNCHES,
+                "vit_split2": vc.WORDS_FORWARD_LAUNCHES,
+                "hbm_copy": hbm_probe.COPY_LAUNCHES,
+                "hbm_plane": hbm_probe.PLANE_LAUNCHES}
+    _check(all(n > 0 for n in launches.values()),
+           f"the probes did not launch every kernel: {launches}")
+    print(f"launches of the probes' main(): {launches}")
+    report["probe_launches"] = launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "dabjax_torch")):
         return _fail("run from a checkout of the repository")
@@ -541,6 +660,7 @@ def main() -> int:
     phase_stages(dev, report, golden)
     phase_entry(dev, report, loop_iq)
     phase_trace(dev, report, golden)
+    phase_probes(dev, report)
 
     src = "dabjax_torch/csrc/viterbi.cu"
     # times at the MSC shape (i8mxu for K3/K4); errors the largest over
@@ -570,6 +690,30 @@ def main() -> int:
          "launches": launches["k4"], "max_abs_err": err["k4"],
          "ms": words["k4"][1], "plain_ms": words["k4"][2]},
     ]
+    probes, pl = "dabjax_torch/csrc/probes.cu", report["probe_launches"]
+    stages, split = report["vit_variants2"], report["vit_split2"]
+    kernels += [
+        {"name": "forward_words_stage", "route": "cuda", "source": probes,
+         "replaces": "tools/vit_variants2.py:47",
+         "launches": pl["vit_variants2"], "max_abs_err": stages["err"],
+         "ms": stages["modes"]["full"]["ms"],
+         "plain_ms": stages["modes"]["full"]["plain_ms"],
+         "modes": stages["modes"]},
+        {"name": "viterbi_forward_acs_words_i8_prepped", "route": "cuda",
+         "source": src, "replaces": "tools/vit_split2.py:54",
+         "launches": pl["vit_split2"], "max_abs_err": split["err"],
+         "ms": split["ms"], "plain_ms": split["plain_ms"],
+         "prep_ms": split["prep_ms"], "full_ms": split["full_ms"]},
+    ]
+    for key, line, name in (("copy", 43, "scale_copy"),
+                            ("plane", 69, "decision_plane")):
+        r = report[f"hbm_{key}"]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": probes,
+             "replaces": f"tools/hbm_probe.py:{line}",
+             "launches": pl[f"hbm_{key}"], "max_abs_err": r["err"],
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "gb_per_s": r["gb_per_s"], "plain_gb_per_s": r["plain_gb_per_s"]})
     print(json.dumps({"kernels": kernels, "card": card,
                       "pipeline": report["pipeline"],
                       "receiver": report["receiver"],

@@ -1,6 +1,7 @@
 """Builds the package's CUDA sources into one shared library.
 
-The sources in ``dabjax_torch/csrc`` are compiled with ``nvcc`` for
+The sources in ``dabjax_torch/csrc`` (``*.cu``, with the ``*.cuh``
+headers they include) are compiled with ``nvcc`` for
 ``sm_90a`` into ``dabjax_torch/build/`` at first use, cached by a hash
 of the sources and flags, and loaded with ``ctypes`` (plain C interface,
 no PyTorch headers).  Nothing here runs at import time.
@@ -47,8 +48,9 @@ def _sources():
 
 
 def _digest(sources) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -87,4 +89,10 @@ def load_library() -> ctypes.CDLL:
     lib.dabjax_viterbi_forward_words.restype = i
     lib.dabjax_viterbi_traceback_words.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.dabjax_viterbi_traceback_words.restype = i
+    lib.dabjax_probe_forward_words_stage.argtypes = [vp, vp, vp, i, i, i, vp]
+    lib.dabjax_probe_forward_words_stage.restype = i
+    lib.dabjax_probe_scale_copy.argtypes = [vp, vp, ctypes.c_longlong, vp]
+    lib.dabjax_probe_scale_copy.restype = i
+    lib.dabjax_probe_decision_plane.argtypes = [vp, vp, i, i, i, i, vp]
+    lib.dabjax_probe_decision_plane.restype = i
     return lib

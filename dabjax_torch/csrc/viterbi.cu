@@ -19,9 +19,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "acs.cuh"
 
-constexpr unsigned kFull = 0xffffffffu;
+namespace {
 
 // K1: forward add-compare-select.  Replaces _forward_kernel_lane in
 // dabjax/fec/viterbi_pallas.py (radix-4 ACS, 16 pair steps per packed
@@ -131,26 +131,12 @@ traceback(const uint2* __restrict__ dec,  // [B, T] decision words
 // predecessor is p = (n >> 2) | (e << 4) and the candidate is
 // pm[p] + S4[e*64 + n] . soft[tau] (S4: the 8 +-1 signs of the pair's two
 // register values).  The 2-bit e of pair j of word w sits at bits
-// 2j..2j+1 of dec[b][w][n]; 16 pair steps per word.
+// 2j..2j+1 of dec[b][w][n]; 16 pair steps per word.  The int8 stream
+// (StreamI8), the candidate adds and the selection are in acs.cuh.
 
-constexpr int kPairsPerWord = 16;
-
-// The 8 soft values of a pair step, and the 8 signs of a branch row, as
-// an int8 stream (packed int8x8; branch metric = two dp4a) ...
-struct StreamI8 {
-  using Pair = int2;
-  __device__ static Pair zero() { return make_int2(0, 0); }
-  __device__ static Pair shfl(Pair v, int src) {
-    return make_int2(__shfl_sync(kFull, v.x, src),
-                     __shfl_sync(kFull, v.y, src));
-  }
-  __device__ static int bm(Pair x, Pair s) {
-    return __dp4a(x.y, s.y, __dp4a(x.x, s.x, 0));
-  }
-};
-
-// ... or as a float stream (integer values times +-1: every product and
-// partial sum is an exact float, so the order of the sum is free).
+// The pair-step soft values as a float stream (integer values times +-1:
+// every product and partial sum is an exact float, so the order of the
+// sum is free).
 struct __align__(16) Float8 {
   float4 lo, hi;
 };
@@ -181,31 +167,6 @@ struct StreamF32 {
            x.hi.z * s.hi.z + x.hi.w * s.hi.w;
   }
 };
-
-// candidate metric: exact int32, or one IEEE round-to-nearest float add
-// (the f32 add of the TPU kernel, which the float words depend on)
-__device__ __forceinline__ int cand(int pm, int bm) { return pm + bm; }
-__device__ __forceinline__ float cand(float pm, int bm) {
-  return __fadd_rn(pm, static_cast<float>(bm));
-}
-__device__ __forceinline__ float cand(float pm, float bm) {
-  return __fadd_rn(pm, bm);
-}
-
-// The TPU kernel's selection, to the letter: inner max over d0 for each
-// d1, then d1 over the two maxima; strict '>' so ties keep 0.
-template <typename M>
-__device__ __forceinline__ unsigned select4(M m00, M m01, M m10, M m11,
-                                            M& pm, bool& da) {
-  da = m10 > m00;
-  const M a = da ? m10 : m00;
-  const bool db = m11 > m01;
-  const M b = db ? m11 : m01;
-  const bool d1 = b > a;
-  pm = d1 ? b : a;
-  const bool d0 = d1 ? db : da;
-  return (static_cast<unsigned>(d0) << 1) | static_cast<unsigned>(d1);
-}
 
 // K3: radix-4 forward ACS emitting decision words.  Replaces
 // _forward_kernel in dabjax/fec/viterbi_pallas.py (SOFT_FMT i8mxu: int8

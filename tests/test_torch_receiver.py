@@ -176,7 +176,9 @@ _, _, ok, _ = frame_pipeline(p, device="cpu")(rows)
 assert bool(ok.all())
 new = {"dabjax_torch.cli", "dabjax_torch.__main__",
        "dabjax_torch.parallel.multihost", "dabjax_torch.runtime.scan",
-       "dabjax_torch.runtime.profiling"}
+       "dabjax_torch.runtime.profiling", "dabjax_torch.tools",
+       "dabjax_torch.tools.vit_variants2", "dabjax_torch.tools.vit_split2",
+       "dabjax_torch.tools.hbm_probe"}
 assert new <= set(mods), new - set(mods)
 from dabjax_torch.fec import viterbi, viterbi_cuda
 from dabjax.fec.viterbi import viterbi_decode_np
