@@ -40,14 +40,23 @@ non-zero exit at the first failure:
     maxtree, full) against its plain version, words equal, and ``full``
     against K3 "i8" on the pair steps < T2; K3 "i8" on prepped input
     against its plain version; the copy kernel and the int8
-    decision-plane kernel bit for bit against theirs; each timed beside
-    its plain version; then each probe's ``main()`` in process, one
-    printed line per case.
+    decision-plane kernel bit for bit against theirs; the per-step-plane
+    forward in its three modes (full, dot_only, no_acs), ksplit on and
+    off, against its plain version, plane equal byte for byte, unrolled
+    equal to not, chunk 16 equal to chunk 8, the ``full`` plane packed
+    16 steps per word equal to K3 "i8" words, ``no_acs`` saturated at
+    -128 and 127; the dependent-chain kernels (every dtype and op of
+    ``vpu_probe``, every dtype of ``vpu_probe2``, every chain length
+    built, integer adds wrapping) bit for bit against their plain
+    versions, with the SASS instructions each op adds (none may be 0: a
+    folded chain); each timed beside its plain version; then each
+    probe's ``main()`` in process, one printed line per case.
 
 The kernels' launch counts are reset just before phases 4-5 (K1, K2),
 phase 6 (K3, K4) and the probes' ``main()`` runs of phase 10 (the probe
 kernels, and K3 for ``vit_split2``) and read just after; each kernel
-must have run there.
+must have run there (the plane forward once for ``vit_variants`` and
+once for ``vit_split``).
 The last two lines are a JSON object describing each kernel and the
 result line ``{"ok": true, "device": {...}}``.  Needs no network; uses
 one card.
@@ -553,6 +562,9 @@ def _probe_checks(dev, report):
           f"{split['plain_ms']:.2f} ms), exact")
     report["vit_split2"] = split
 
+    _plane_checks(report, soft, k3_words)
+    _chain_checks(dev, report)
+
     # hbm_probe: copy and plane bit for bit
     xb = hbm_probe.input_block().to(dev)
     xb += torch.rand_like(xb)                # arbitrary floats for the copy
@@ -579,34 +591,193 @@ def _probe_checks(dev, report):
               f"GB/s (plain {plain_ms:.4f} ms), bit for bit")
 
 
+def _plane_checks(report, soft, k3_words):
+    """Phase 10, planes: the per-step-plane forward in every mode, ksplit
+    on and off, against its plain version bit for bit; unrolled against
+    not; chunk 16 against chunk 8; the ``full`` plane packed 16 steps per
+    word against K3 "i8" words; ``no_acs`` saturated at both ends."""
+    import torch
+    from dabjax_torch import tools
+    from dabjax_torch.tools import vit_split, vit_variants as vv
+
+    nbits = tools.NBITS
+    T2, Tp2 = vv.pair_steps(nbits)
+    modes, plane_err, full = {}, 0, None
+    for ksplit in (True, False):
+        x = vv.plane_soft(soft, nbits, 8, ksplit)
+        for mode in vv.MODES:
+            plane = vv.forward_plane_cuda(x, T2, mode)
+            e = int((plane.int() - vv.forward_plane_torch(x, T2, mode).int())
+                    .abs().max())
+            _check(e == 0, f"forward_plane {mode} (ksplit {ksplit}) differs "
+                   "from plain")
+            plane_err = max(plane_err, e)
+            _check(torch.equal(vv.forward_plane_cuda(x, T2, mode, unroll=True),
+                               plane),
+                   f"forward_plane {mode} (ksplit {ksplit}): unroll 1 != 0")
+            if mode == "full":
+                _check(torch.equal(vv.pack_words(plane), k3_words),
+                       f"full plane (ksplit {ksplit}) != K3 i8 words")
+                if ksplit:
+                    full = plane
+            if mode == "no_acs":
+                _check(bool((plane == -128).any() and (plane == 127).any()),
+                       "no_acs plane holds not both -128 and 127")
+            # the plain version timed at ksplit on (the probe's default)
+            key = mode if ksplit else f"{mode}_k8"
+            modes[key] = dict(
+                ms=_cuda_ms(lambda: vv.forward_plane_cuda(x, T2, mode), 10),
+                unroll_ms=_cuda_ms(lambda: vv.forward_plane_cuda(
+                    x, T2, mode, unroll=True), 10))
+            if ksplit:
+                modes[key]["plain_ms"] = _cuda_ms(
+                    lambda: vv.forward_plane_torch(x, T2, mode), 1)
+            print(f"probes: vit_variants {key}: {modes[key]['ms']:.4f} ms, "
+                  f"unrolled {modes[key]['unroll_ms']:.4f} ms" +
+                  (f" (plain {modes[key]['plain_ms']:.2f} ms)" if ksplit
+                   else "") + ", exact")
+        print(f"probes: vit_variants ksplit={ksplit}: three modes equal "
+              "plain, unroll 0 = 1, full packs to K3 i8, no_acs saturates")
+    report["vit_variants"] = dict(err=plane_err, modes=modes)
+
+    # vit_split: chunk 8 and 16, unrolled or not; the padding steps of
+    # chunk 16 (past T2) are 0
+    split = dict(err=plane_err, prep_ms={}, ms={})
+    for chunk in vv.CHUNKS:
+        split["prep_ms"][chunk] = _cuda_ms(
+            lambda: vit_split.preprocess(soft, nbits, chunk), 10)
+        x = vit_split.preprocess(soft, nbits, chunk)
+        for unroll in (False, True):
+            plane = vit_split.fwd(x, T2, chunk, unroll)
+            _check(torch.equal(plane[:Tp2], full)
+                   and not bool(plane[Tp2:].any()),
+                   f"vit_split C={chunk} unroll={unroll} != the C=8 plane")
+            split["ms"][f"C{chunk}_unroll{int(unroll)}"] = _cuda_ms(
+                lambda: vit_split.fwd(x, T2, chunk, unroll), 10)
+    split["plain_ms"] = modes["full"]["plain_ms"]
+    print(f"probes: vit_split: prep ms {split['prep_ms']}, kernel ms "
+          f"{split['ms']}, exact")
+    report["vit_split"] = split
+
+
+def _chain_checks(dev, report):
+    """Phase 10, chains: every dtype x op of ``vpu_probe`` and every dtype
+    of ``vpu_probe2`` against their plain versions bit for bit at every
+    chain length built (integer adds wrap to 0 at the long ones); per-op
+    us from the slopes; the SASS instructions each op adds."""
+    import torch
+    from dabjax_torch.tools import vpu_probe, vpu_probe2
+
+    def compare(got, want, what):
+        same = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        _check(same, f"{what}: kernel differs from plain")
+        d = (got.double() - want.double()).abs()
+        return float(torch.nan_to_num(d, nan=0.0).max())
+
+    sass = dict(chain=vpu_probe.sass_op_counts(),
+                chain_long=vpu_probe.sass_op_counts(512, 2048),
+                pair=vpu_probe2.sass_op_counts(),
+                pair_long=vpu_probe2.sass_op_counts(512, 2048))
+    for key in ("chain", "chain_long"):
+        _check(all(c > 0 for ops in sass[key].values() for c in ops.values()),
+               f"a chain was folded ({key}): {sass[key]}")
+    for key in ("pair", "pair_long"):
+        _check(all(c > 0 for c in sass[key].values()),
+               f"a pair chain was folded ({key}): {sass[key]}")
+    print(f"probes: SASS per op, chain n 8->64 {sass['chain']}; pair n "
+          f"16->96 {sass['pair']}")
+
+    chain, chain_err = {}, 0.0
+    for dtype in vpu_probe.DTYPES:
+        x = vpu_probe.tile(dtype, seed=9).to(dev)
+        for op in vpu_probe.OPS:
+            nonzero = []
+            for n in vpu_probe.CHAIN_NS:
+                got = vpu_probe.elementwise_chain_cuda(x, op, n)
+                chain_err = max(chain_err, compare(
+                    got, vpu_probe.elementwise_chain_torch(x, op, n),
+                    f"vpu_probe {dtype} {op} n={n}"))
+                nonzero.append(bool(got.ne(0).any()))
+            _check(nonzero[0], f"vpu_probe {dtype} {op}: all zero at n=3")
+            _check(op != "add" or dtype[:3] != "int" or not nonzero[-1],
+                   f"vpu_probe {dtype} add: did not wrap to 0")
+            chain.setdefault(dtype, {})[op] = dict(
+                vpu_probe.rates(x, op), sass=sass["chain"][dtype][op],
+                sass_long=sass["chain_long"][dtype][op])
+        print(f"probes: vpu_probe {dtype}: add/max/mix at n "
+              f"{vpu_probe.CHAIN_NS} bit for bit; us/op (n 512->2048) " +
+              ", ".join(f"{op} {r['long_us']:.4f}"
+                        for op, r in chain[dtype].items()))
+    x = vpu_probe.tile("float32", seed=9).to(dev)
+    report["vpu_probe"] = dict(
+        err=chain_err, per_op=chain,
+        ms=_cuda_ms(lambda: vpu_probe.elementwise_chain_cuda(x, "mix", 64),
+                    100),
+        plain_ms=_cuda_ms(
+            lambda: vpu_probe.elementwise_chain_torch(x, "mix", 64), 3))
+
+    pair, pair_err = {}, 0.0
+    for dtype in vpu_probe2.DTYPES:
+        x, y = (t.to(dev) for t in vpu_probe2.pair_tiles(dtype, seed=9))
+        for n in vpu_probe2.PAIR_NS:
+            got = vpu_probe2.pair_chain_cuda(x, y, n)
+            pair_err = max(pair_err, compare(
+                got, vpu_probe2.pair_chain_torch(x, y, n),
+                f"vpu_probe2 {dtype} n={n}"))
+            _check(bool(got.ne(x).any()), f"vpu_probe2 {dtype} n={n}: v == x")
+        pair[dtype] = dict(vpu_probe2.rates(x, y), sass=sass["pair"][dtype],
+                           sass_long=sass["pair_long"][dtype])
+        print(f"probes: vpu_probe2 {dtype}: n {vpu_probe2.PAIR_NS} bit for "
+              f"bit; us/op (n 512->2048) {pair[dtype]['long_us']:.4f}")
+    x, y = (t.to(dev) for t in vpu_probe2.pair_tiles("float32", seed=9))
+    report["vpu_probe2"] = dict(
+        err=pair_err, per_op=pair,
+        ms=_cuda_ms(lambda: vpu_probe2.pair_chain_cuda(x, y, 96), 100),
+        plain_ms=_cuda_ms(lambda: vpu_probe2.pair_chain_torch(x, y, 96), 3))
+
+
 def phase_probes(dev, report):
     """Phase 10: the probe kernels checked, then each probe's main() run
     in process with the launch counts set to 0 just before."""
     import torch
     from dabjax_torch.fec import viterbi_cuda as vc
-    from dabjax_torch.tools import hbm_probe, vit_split2
+    from dabjax_torch.tools import (hbm_probe, vit_split, vit_split2,
+                                    vit_variants, vpu_probe, vpu_probe2)
     from dabjax_torch.tools import vit_variants2 as vv2
 
     _probe_checks(dev, report)
-    cases = {vv2: 2 * len(vv2.MODES), vit_split2: 4, hbm_probe: 4}
+    # (module, printed lines, what each line holds)
+    cases = [(vv2, 2 * len(vv2.MODES), " ms"), (vit_split2, 4, " ms"),
+             (hbm_probe, 4, " ms"),
+             (vit_variants, 2 * len(vit_variants.MODES), " ms"),
+             (vit_split, 3 * len(vit_variants.CHUNKS) + 1, " ms"),
+             (vpu_probe, 2 * len(vpu_probe.DTYPES) * len(vpu_probe.OPS),
+              "us/op"),
+             (vpu_probe2, 2 * len(vpu_probe2.DTYPES), "us/op")]
     torch.cuda.synchronize()
-    vc.reset_launches()
-    vv2.reset_launches()
-    hbm_probe.reset_launches()
-    for mod, n_cases in cases.items():
+    for mod in (vc, vv2, hbm_probe, vit_variants, vpu_probe, vpu_probe2):
+        mod.reset_launches()
+    plane_launches = {}
+    for mod, n_cases, unit in cases:
         name = mod.__name__.rsplit(".", 1)[1]
+        before = vit_variants.LAUNCHES
         with contextlib.redirect_stdout(io.StringIO()) as buf:
             rc = mod.main()
+        plane_launches[name] = vit_variants.LAUNCHES - before
         lines = buf.getvalue().splitlines()
         print("\n".join(f"probe {name}: {line}" for line in lines))
         _check(rc == 0, f"{name}.main() returned {rc}")
-        _check(len(lines) == n_cases and all(" ms" in s for s in lines),
+        _check(len(lines) == n_cases and all(unit in s for s in lines),
                f"{name}.main() printed {len(lines)} lines, not {n_cases}")
     torch.cuda.synchronize()
     launches = {"vit_variants2": vv2.LAUNCHES,
                 "vit_split2": vc.WORDS_FORWARD_LAUNCHES,
                 "hbm_copy": hbm_probe.COPY_LAUNCHES,
-                "hbm_plane": hbm_probe.PLANE_LAUNCHES}
+                "hbm_plane": hbm_probe.PLANE_LAUNCHES,
+                "vit_variants": plane_launches["vit_variants"],
+                "vit_split": plane_launches["vit_split"],
+                "vpu_probe": vpu_probe.LAUNCHES,
+                "vpu_probe2": vpu_probe2.LAUNCHES}
     _check(all(n > 0 for n in launches.values()),
            f"the probes did not launch every kernel: {launches}")
     print(f"launches of the probes' main(): {launches}")
@@ -714,6 +885,32 @@ def main() -> int:
              "launches": pl[f"hbm_{key}"], "max_abs_err": r["err"],
              "ms": r["ms"], "plain_ms": r["plain_ms"],
              "gb_per_s": r["gb_per_s"], "plain_gb_per_s": r["plain_gb_per_s"]})
+    # the plane forward: full mode, ksplit, C = 8; the chains: one launch
+    # at the TPU probe's longest chain (float32 mix n 64, pair n 96), the
+    # per-op us of every dtype in the sub-object
+    plane, split = report["vit_variants"], report["vit_split"]
+    chains = "dabjax_torch/csrc/chains.cu"
+    kernels += [
+        {"name": "forward_plane", "route": "cuda", "source": probes,
+         "replaces": "tools/vit_variants.py:38",
+         "launches": pl["vit_variants"], "max_abs_err": plane["err"],
+         "ms": plane["modes"]["full"]["ms"],
+         "plain_ms": plane["modes"]["full"]["plain_ms"],
+         "modes": plane["modes"]},
+        {"name": "forward_plane_full", "route": "cuda", "source": probes,
+         "replaces": "tools/vit_split.py:59",
+         "launches": pl["vit_split"], "max_abs_err": split["err"],
+         "ms": split["ms"]["C8_unroll0"], "plain_ms": split["plain_ms"],
+         "unroll_ms": split["ms"], "prep_ms": split["prep_ms"]},
+    ]
+    for name, key, line in (("elementwise_chain", "vpu_probe", 39),
+                            ("pair_chain", "vpu_probe2", 37)):
+        r = report[key]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": chains,
+             "replaces": f"tools/{key}.py:{line}", "launches": pl[key],
+             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "per_op_us": r["per_op"]})
     print(json.dumps({"kernels": kernels, "card": card,
                       "pipeline": report["pipeline"],
                       "receiver": report["receiver"],

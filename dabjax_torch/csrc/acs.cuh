@@ -1,7 +1,7 @@
 // Pieces of the radix-4 add-compare-select shared by the word forward
-// kernel (K3, viterbi.cu) and the stage-stripped probe (probes.cu), so
-// that both select exactly as dabjax/fec/viterbi_pallas.py's
-// _forward_kernel does.  Internal linkage: each .cu gets its own copy.
+// kernel (K3, viterbi.cu) and the forward probes (probes.cu), so that
+// they select exactly as dabjax/fec/viterbi_pallas.py's _forward_kernel
+// does.  Internal linkage: each .cu gets its own copy.
 
 #pragma once
 
@@ -26,6 +26,39 @@ struct StreamI8 {
   }
   __device__ static int bm(Pair x, Pair s) {
     return __dp4a(x.y, s.y, __dp4a(x.x, s.x, 0));
+  }
+};
+
+// ... or as a float stream (integer values times +-1: every product and
+// partial sum is an exact float, so the order of the sum is free).
+struct __align__(16) Float8 {
+  float4 lo, hi;
+};
+
+struct StreamF32 {
+  using Pair = Float8;
+  __device__ static Pair zero() {
+    Pair z;
+    z.lo = make_float4(0.f, 0.f, 0.f, 0.f);
+    z.hi = z.lo;
+    return z;
+  }
+  __device__ static float4 shfl4(float4 v, int src) {
+    return make_float4(__shfl_sync(kFull, v.x, src),
+                       __shfl_sync(kFull, v.y, src),
+                       __shfl_sync(kFull, v.z, src),
+                       __shfl_sync(kFull, v.w, src));
+  }
+  __device__ static Pair shfl(const Pair& v, int src) {
+    Pair o;
+    o.lo = shfl4(v.lo, src);
+    o.hi = shfl4(v.hi, src);
+    return o;
+  }
+  __device__ static float bm(const Pair& x, const Pair& s) {
+    return x.lo.x * s.lo.x + x.lo.y * s.lo.y + x.lo.z * s.lo.z +
+           x.lo.w * s.lo.w + x.hi.x * s.hi.x + x.hi.y * s.hi.y +
+           x.hi.z * s.hi.z + x.hi.w * s.hi.w;
   }
 };
 

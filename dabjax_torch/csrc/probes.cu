@@ -127,6 +127,191 @@ forward_words_stage(const int2* __restrict__ soft,   // [B, Tp2] int8x8
   }
 }
 
+// modes of tools/vit_variants.py (its `mode`)
+enum PlaneMode { kPlaneFull = 0, kPlaneDotOnly = 1, kPlaneNoAcs = 2 };
+
+// float -> int8 as XLA's astype: truncated toward zero, saturated (a C++
+// cast of an out-of-range float is undefined; cvt.rzi saturates to int32)
+__device__ __forceinline__ int saturate_i8(float v) {
+  return max(-128, min(127, __float2int_rz(v)));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// P4: the per-step-plane forward.  Replaces make_kernel in
+// tools/vit_variants.py (modes full, dot_only, no_acs) and make_fwd in
+// tools/vit_split.py (full, with its chunk loop unrolled or not): the
+// forward of the old float soft format, which stored each pair step's
+// branch of every state as one int8 of a [Tp2, 64, Bp] plane instead of
+// packing 16 pair steps per word.  With x the pair step's K float soft
+// values (K = 16 with ksplit: the 8 of hi = round(s / 256) * 256, then
+// the 8 of lo = s - hi, and S4's signs over both halves; else K = 8),
+// bm[r] = S4[r] . x and m[r] = pm[r >> 2] + bm[r] (one round-to-nearest
+// float add) over the rows r = e*64 + n, the byte of state n at step t
+// is:
+//   full:     K3's branch e = (d0 << 1) | d1, or 0 for t >= T2; pm from
+//             0 / -1e9, carried over every step;
+//   dot_only: bm[n] > 0; pm is never updated;
+//   no_acs:   m[64 + n] cast to int8 as XLA casts (truncated toward zero,
+//             saturated to [-128, 127]); pm[n] <- m[n].
+//
+// What bounds it on the card: in full, K3's chain of dependent pair steps
+// per codeword (8 shuffles, 8 candidates of 8 float multiply-adds, two
+// 4-way selections), and now 64 bytes of plane per pair step where K3
+// stores 16 bits per state per word: input and plane are 329 MB each at
+// the main-path shape (4428 codewords x 1160 steps, K = 16), so dot_only,
+// with no chain through pm, is a read and a write of device memory.
+// Design: K3's (one warp per codeword, lane l holds states l and l + 32,
+// predecessors by warp shuffle, candidates by __fadd_rn, K3's select4).
+// The soft values are integers (the probe's input), so hi + lo and every
+// partial sum of a branch metric are exact floats: with ksplit the two
+// halves are added first (8 adds a step, not 64 more multiply-adds),
+// which is the K = 16 dot to the bit.  Per chunk of kC steps the warp
+// loads the chunk's kC * K floats, one coalesced float4 a lane, into
+// shared memory, reads each step's values from there (a broadcast),
+// writes its bytes into a [kC, 64] tile in shared memory and stores the
+// tile as coalesced 16-byte runs: kC * 64 contiguous bytes of the
+// [B, Tp2, 64] plane, whose [Tp2, 64, B] view the wrapper returns.
+// kUnroll unrolls the kC steps of a chunk (the TPU probe's Python loop
+// against its fori_loop).
+template <int kMode, int kK, int kC, bool kUnroll>
+__global__ void __launch_bounds__(128)
+forward_plane(const float4* __restrict__ soft,   // [B, Tp2, kK]
+              const Float8* __restrict__ signs,  // [256] rows of S4
+              int4* __restrict__ plane,          // [B, Tp2, 64] int8
+              int B, int Tp2, int T2) {
+  constexpr int kWarps = 4;
+  constexpr int kIn4 = kC * kK / 4;   // float4s of soft per chunk
+  constexpr int kOut16 = kC * 4;      // 16-byte runs of plane per chunk
+  __shared__ float4 s_in[kWarps][kIn4];
+  __shared__ int4 s_out[kWarps][kOut16];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int cw = blockIdx.x * kWarps + warp;
+  if (cw >= B) return;  // whole warps exit together
+  const float4* s = soft + static_cast<size_t>(cw) * Tp2 * (kK / 4);
+  int4* d = plane + static_cast<size_t>(cw) * Tp2 * 4;
+  const float4* xin = s_in[warp];
+  int8_t* tile = reinterpret_cast<int8_t*>(s_out[warp]);
+
+  // branch rows e*64 + n: sg[e] for state lane, sg[4 + e] for lane + 32
+  Float8 sg[8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    sg[e] = signs[e * 64 + lane];
+    sg[4 + e] = signs[e * 64 + 32 + lane];
+  }
+  float pm_lo = (lane == 0) ? 0.f : -1e9f;  // metric of state lane
+  float pm_hi = -1e9f;                      // metric of state lane + 32
+  const int q = lane >> 2;
+  const int src_a = q, src_b = 16 + q, src_c = 8 + q, src_d = 24 + q;
+
+  auto step = [&](int t0, int j) {  // pair step t0 + j, row j of the chunk
+    const float4* xs = xin + j * (kK / 4);
+    Float8 x;
+    x.lo = xs[0];
+    x.hi = xs[1];
+    if constexpr (kK == 16) {  // hi + lo
+      x.lo = add4(x.lo, xs[2]);
+      x.hi = add4(x.hi, xs[3]);
+    }
+    int v_lo, v_hi;
+    if constexpr (kMode == kPlaneDotOnly) {
+      v_lo = StreamF32::bm(x, sg[0]) > 0.f;
+      v_hi = StreamF32::bm(x, sg[4]) > 0.f;
+    } else if constexpr (kMode == kPlaneNoAcs) {
+      // rows < 128 have predecessors < 32: the low metrics only
+      const float a = __shfl_sync(kFull, pm_lo, src_a);
+      const float b = __shfl_sync(kFull, pm_lo, src_b);
+      const float c = __shfl_sync(kFull, pm_lo, src_c);
+      const float dd = __shfl_sync(kFull, pm_lo, src_d);
+      v_lo = saturate_i8(cand(b, StreamF32::bm(x, sg[1])));
+      v_hi = saturate_i8(cand(dd, StreamF32::bm(x, sg[5])));
+      pm_lo = cand(a, StreamF32::bm(x, sg[0]));
+      pm_hi = cand(c, StreamF32::bm(x, sg[4]));
+    } else {
+      const float a_lo = __shfl_sync(kFull, pm_lo, src_a);
+      const float a_hi = __shfl_sync(kFull, pm_hi, src_a);
+      const float b_lo = __shfl_sync(kFull, pm_lo, src_b);
+      const float b_hi = __shfl_sync(kFull, pm_hi, src_b);
+      const float c_lo = __shfl_sync(kFull, pm_lo, src_c);
+      const float c_hi = __shfl_sync(kFull, pm_hi, src_c);
+      const float d_lo = __shfl_sync(kFull, pm_lo, src_d);
+      const float d_hi = __shfl_sync(kFull, pm_hi, src_d);
+      bool da_lo, da_hi;
+      const unsigned e_lo = select4(
+          cand(a_lo, StreamF32::bm(x, sg[0])),
+          cand(b_lo, StreamF32::bm(x, sg[1])),
+          cand(a_hi, StreamF32::bm(x, sg[2])),
+          cand(b_hi, StreamF32::bm(x, sg[3])), pm_lo, da_lo);
+      const unsigned e_hi = select4(
+          cand(c_lo, StreamF32::bm(x, sg[4])),
+          cand(d_lo, StreamF32::bm(x, sg[5])),
+          cand(c_hi, StreamF32::bm(x, sg[6])),
+          cand(d_hi, StreamF32::bm(x, sg[7])), pm_hi, da_hi);
+      const bool valid = t0 + j < T2;
+      v_lo = valid ? static_cast<int>(e_lo) : 0;
+      v_hi = valid ? static_cast<int>(e_hi) : 0;
+    }
+    tile[j * 64 + lane] = static_cast<int8_t>(v_lo);
+    tile[j * 64 + 32 + lane] = static_cast<int8_t>(v_hi);
+  };
+
+  for (int t0 = 0; t0 < Tp2; t0 += kC) {
+    const float4* src = s + static_cast<size_t>(t0) * (kK / 4);
+    for (int i = lane; i < kIn4; i += 32) s_in[warp][i] = src[i];
+    __syncwarp();
+    if constexpr (kUnroll) {
+#pragma unroll
+      for (int j = 0; j < kC; ++j) step(t0, j);
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < kC; ++j) step(t0, j);
+    }
+    __syncwarp();
+    int4* dst = d + static_cast<size_t>(t0) * 4;
+    for (int i = lane; i < kOut16; i += 32) dst[i] = s_out[warp][i];
+  }
+}
+
+template <int kMode, int kK, int kC>
+void launch_plane_unroll(bool unroll, int blocks, cudaStream_t st,
+                         const float4* s, const Float8* sg, int4* p, int B,
+                         int Tp2, int T2) {
+  if (unroll)
+    forward_plane<kMode, kK, kC, true><<<blocks, 128, 0, st>>>(s, sg, p, B,
+                                                              Tp2, T2);
+  else
+    forward_plane<kMode, kK, kC, false><<<blocks, 128, 0, st>>>(s, sg, p, B,
+                                                               Tp2, T2);
+}
+
+template <int kMode, int kK>
+void launch_plane_chunk(int chunk, bool unroll, int blocks, cudaStream_t st,
+                        const float4* s, const Float8* sg, int4* p, int B,
+                        int Tp2, int T2) {
+  if (chunk == 8)
+    launch_plane_unroll<kMode, kK, 8>(unroll, blocks, st, s, sg, p, B, Tp2,
+                                      T2);
+  else
+    launch_plane_unroll<kMode, kK, 16>(unroll, blocks, st, s, sg, p, B, Tp2,
+                                       T2);
+}
+
+template <int kMode>
+void launch_plane_k(int K, int chunk, bool unroll, int blocks,
+                    cudaStream_t st, const float4* s, const Float8* sg,
+                    int4* p, int B, int Tp2, int T2) {
+  if (K == 8)
+    launch_plane_chunk<kMode, 8>(chunk, unroll, blocks, st, s, sg, p, B, Tp2,
+                                 T2);
+  else
+    launch_plane_chunk<kMode, 16>(chunk, unroll, blocks, st, s, sg, p, B,
+                                  Tp2, T2);
+}
+
 // P2: streaming copy o = x * 1.000001f.  Replaces copy_kernel in
 // tools/hbm_probe.py (the copy bandwidth of device memory, in the block
 // shape of the Viterbi soft input).
@@ -225,6 +410,37 @@ int dabjax_probe_forward_words_stage(const void* soft, const void* signs,
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// soft: [B, Tp2, K] float (K 8 or 16); signs: [256, 8] float; plane:
+// [B, Tp2, 64] int8; mode 0 full, 1 dot_only, 2 no_acs; chunk 8 or 16,
+// Tp2 a multiple of it; unroll 0 or 1
+int dabjax_probe_forward_plane(const void* soft, const void* signs,
+                               void* plane, int B, int Tp2, int T2, int mode,
+                               int K, int chunk, int unroll, void* stream) {
+  if ((K != 8 && K != 16) || (chunk != 8 && chunk != 16) ||
+      Tp2 % chunk != 0 || mode < kPlaneFull || mode > kPlaneNoAcs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (B + 3) / 4;                // 4 codewords per block
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* s = static_cast<const float4*>(soft);
+  const Float8* sg = static_cast<const Float8*>(signs);
+  int4* p = static_cast<int4*>(plane);
+  const bool u = unroll != 0;
+  switch (mode) {
+    case kPlaneFull:
+      launch_plane_k<kPlaneFull>(K, chunk, u, blocks, st, s, sg, p, B, Tp2,
+                                 T2);
+      break;
+    case kPlaneDotOnly:
+      launch_plane_k<kPlaneDotOnly>(K, chunk, u, blocks, st, s, sg, p, B,
+                                    Tp2, T2);
+      break;
+    default:
+      launch_plane_k<kPlaneNoAcs>(K, chunk, u, blocks, st, s, sg, p, B, Tp2,
+                                  T2);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -132,41 +132,8 @@ traceback(const uint2* __restrict__ dec,  // [B, T] decision words
 // pm[p] + S4[e*64 + n] . soft[tau] (S4: the 8 +-1 signs of the pair's two
 // register values).  The 2-bit e of pair j of word w sits at bits
 // 2j..2j+1 of dec[b][w][n]; 16 pair steps per word.  The int8 stream
-// (StreamI8), the candidate adds and the selection are in acs.cuh.
-
-// The pair-step soft values as a float stream (integer values times +-1:
-// every product and partial sum is an exact float, so the order of the
-// sum is free).
-struct __align__(16) Float8 {
-  float4 lo, hi;
-};
-
-struct StreamF32 {
-  using Pair = Float8;
-  __device__ static Pair zero() {
-    Pair z;
-    z.lo = make_float4(0.f, 0.f, 0.f, 0.f);
-    z.hi = z.lo;
-    return z;
-  }
-  __device__ static float4 shfl4(float4 v, int src) {
-    return make_float4(__shfl_sync(kFull, v.x, src),
-                       __shfl_sync(kFull, v.y, src),
-                       __shfl_sync(kFull, v.z, src),
-                       __shfl_sync(kFull, v.w, src));
-  }
-  __device__ static Pair shfl(const Pair& v, int src) {
-    Pair o;
-    o.lo = shfl4(v.lo, src);
-    o.hi = shfl4(v.hi, src);
-    return o;
-  }
-  __device__ static float bm(const Pair& x, const Pair& s) {
-    return x.lo.x * s.lo.x + x.lo.y * s.lo.y + x.lo.z * s.lo.z +
-           x.lo.w * s.lo.w + x.hi.x * s.hi.x + x.hi.y * s.hi.y +
-           x.hi.z * s.hi.z + x.hi.w * s.hi.w;
-  }
-};
+// (StreamI8), the float stream (StreamF32), the candidate adds and the
+// selection are in acs.cuh.
 
 // K3: radix-4 forward ACS emitting decision words.  Replaces
 // _forward_kernel in dabjax/fec/viterbi_pallas.py (SOFT_FMT i8mxu: int8

@@ -2,11 +2,13 @@
 
 Each module mirrors a probe of ``tools/`` by name and measures on one
 CUDA card what that probe measured on the TPU, with a hand-written
-kernel (``dabjax_torch/csrc/probes.cu``, or the production kernel the
-probe launched) beside its plain torch version.  They answer questions
-about the Viterbi kernels' costs (what each stage of a pair step costs,
-what the prep before the kernel costs, what a streaming copy and a
-decision-plane store reach); none of them is on the receiver's path.
+kernel (``dabjax_torch/csrc/probes.cu`` or ``chains.cu``, or the
+production kernel the probe launched) beside its plain torch version.
+They answer questions about the Viterbi kernels' costs (what each stage
+of a pair step costs, what the prep before the kernel costs, what a
+streaming copy and a decision-plane store reach, what a per-step int8
+decision plane costs against packed words, what one elementwise op costs
+by dtype); none of them is on the receiver's path.
 
 Run one on a card as ``python -m dabjax_torch.tools.<name>``: it prints
 one line per case (ms, and Mb/s or GB/s) and exits non-zero when there is

@@ -8,8 +8,9 @@ version of each probe kernel, which the CUDA kernel is held against on
 the card.  Arrays are compared after re-laying the TPU's [Tp2*8, Bp] /
 [W, 64, Bp] onto the port's [B, ...] and dropping the lane padding.  The
 tolerance is exact throughout: the branch metrics are integer dots, the
-path metrics the same float32 adds in the same order, and the copy and
-the plane the same float32 product and int8 cast.
+path metrics the same float32 adds in the same order, the copy and the
+plane the same float32 product and int8 cast, and the per-step planes'
+float -> int8 cast XLA's (truncated toward zero, saturated).
 """
 
 import functools
@@ -28,7 +29,8 @@ import dabjax.fec.viterbi_pallas as vp
 from dabjax.fec import conv
 from dabjax_torch import tools
 from dabjax_torch.fec import viterbi, viterbi_cuda
-from dabjax_torch.tools import hbm_probe, vit_split2, vit_variants2
+from dabjax_torch.tools import (hbm_probe, vit_split, vit_split2,
+                                vit_variants, vit_variants2)
 
 torch.set_num_threads(1)
 
@@ -154,6 +156,130 @@ def test_full_stage_equals_k3_words_below_t2(nbits):
     assert torch.equal(vit_variants2.mask_padding(full, _t2(nbits)), k3)
 
 
+def _tpu_plane_fwd(kernel, s, C):
+    """A per-step-plane forward of the probes over their input ``s``
+    [Tp2, K, Bp] float32, with the BlockSpecs of ``tools/vit_variants.py``
+    (:114-127) and ``tools/vit_split.py`` (:109-122) -> int8
+    [Tp2, 64, Bp]."""
+    Tp2, K, Bp = s.shape
+    _, S4 = vp._radix4_matrices()
+    if K == 16:
+        S4 = np.concatenate([S4, S4], axis=1)
+    return np.asarray(pl.pallas_call(
+        kernel,
+        grid=(1, Tp2 // C),
+        in_specs=[
+            pl.BlockSpec((C, K, Bp), lambda l, i: (i, 0, l),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((256, K), lambda l, i: (0, 0),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((C, 64, Bp), lambda l, i: (i, 0, l),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((Tp2, 64, Bp), jnp.int8),
+        scratch_shapes=[pltpu.VMEM((64, Bp), jnp.float32)],
+        interpret=True,
+    )(s, jnp.asarray(S4)))
+
+
+def _plane_input(soft, nbits, ksplit, chunk=8):
+    """(the probes' ``preprocess`` [Tp2, K, Bp], the port's
+    ``plane_soft`` [B, Tp2, K]), checked equal."""
+    s = _tool("vit_split").preprocess(jnp.asarray(soft), nbits, chunk=chunk,
+                                      ksplit=ksplit)
+    x = vit_variants.plane_soft(torch.from_numpy(soft), nbits, chunk, ksplit)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(s).transpose(2, 0, 1))
+    return s, x
+
+
+@pytest.mark.parametrize("nbits", [100, 101])
+@pytest.mark.parametrize("ksplit", [True, False], ids=["ksplit", "k8"])
+def test_plane_soft_matches_tpu_preprocess(ksplit, nbits):
+    soft = _soft(nbits, seed=30 + nbits)
+    soft[:, :8] = [300, -300, 128, -129, 255.5, -0.5, 383, 1000]  # hi != 0
+    _, x = _plane_input(soft, nbits, ksplit)
+    T2, Tp2 = vit_variants.pair_steps(nbits)
+    assert tuple(x.shape) == (B, Tp2, 16 if ksplit else 8)
+    assert Tp2 % 8 == 0 and Tp2 - 8 < T2 <= Tp2
+    if ksplit:                                   # 1000 = 1024 - 24
+        assert x[0, 0, 7] == 1024 and x[0, 0, 15] == -24
+
+
+@pytest.mark.parametrize("nbits", [100, 101])
+@pytest.mark.parametrize("ksplit", [True, False], ids=["ksplit", "k8"])
+@pytest.mark.parametrize("mode", vit_variants.MODES)
+def test_plane_forward_matches_tpu_probe(mode, ksplit, nbits):
+    """``tools/vit_variants.py``'s ``make_kernel`` against the plain
+    version, on the probes' own ``preprocess`` input."""
+    soft = _soft(nbits, seed=40 + nbits)
+    s, x = _plane_input(soft, nbits, ksplit)
+    T2, Tp2 = vit_variants.pair_steps(nbits)
+    got = vit_variants.forward_plane_torch(x, T2, mode).numpy()
+    want = _tpu_plane_fwd(_tool("vit_variants").make_kernel(T2, 8, mode), s,
+                          8)
+    assert got.dtype == np.int8 and got.shape == (Tp2, 64, B)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got)) > 1
+    assert vit_variants.LAUNCHES == 0       # CPU tensors reach no kernel
+
+
+@pytest.mark.parametrize("nbits", [100, 101])
+@pytest.mark.parametrize("unroll", [False, True], ids=["loop", "unrolled"])
+def test_make_fwd_matches_plane(unroll, nbits):
+    """``tools/vit_split.py``'s ``make_fwd`` (mode full, chunk 16) against
+    the plain version: unrolling changes nothing."""
+    soft = _soft(nbits, seed=50 + nbits)
+    s, x = _plane_input(soft, nbits, ksplit=True, chunk=16)
+    T2, _ = vit_variants.pair_steps(nbits, 16)
+    assert torch.equal(vit_split.preprocess(torch.from_numpy(soft), nbits,
+                                            16), x)
+    want = _tpu_plane_fwd(_tool("vit_split").make_fwd(T2, 16, unroll), s, 16)
+    got = vit_variants.forward_plane_torch(x, T2, "full", chunk=16)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[T2:].any() and want[:T2].any()
+
+
+@pytest.mark.parametrize("nbits", [100, 101])
+@pytest.mark.parametrize("ksplit", [True, False], ids=["ksplit", "k8"])
+def test_full_plane_packs_to_k3_words(ksplit, nbits):
+    """The ``full`` plane, 16 steps per word, is K3 "i8"'s words."""
+    soft = torch.from_numpy(_soft(nbits, seed=60 + nbits))
+    T2, _ = vit_variants.pair_steps(nbits)
+    plane = vit_variants.forward_plane_torch(
+        vit_variants.plane_soft(soft, nbits, ksplit=ksplit), T2, "full")
+    k3, _ = viterbi.viterbi_forward_words_torch(soft, nbits, "i8")
+    assert torch.equal(vit_variants.pack_words(plane), k3)
+
+
+def test_no_acs_saturates_as_xla():
+    """``no_acs`` holds both ends of int8: XLA's cast truncates toward zero
+    and saturates, where torch's ``.to(torch.int8)`` alone would wrap."""
+    nbits = 100
+    _, x = _plane_input(_soft(nbits, seed=70), nbits, ksplit=True)
+    T2, _ = vit_variants.pair_steps(nbits)
+    got = vit_variants.forward_plane_torch(x, T2, "no_acs")
+    assert bool((got == -128).any()) and bool((got == 127).any())
+    m = torch.tensor([-1e9, -128.9, -0.5, 126.99, 300.7])
+    want = np.asarray(jnp.asarray(m.numpy()).astype(jnp.int8)).tolist()
+    assert want == [-128, -128, 0, 126, 127]
+    assert m.trunc().clamp(-128, 127).to(torch.int8).tolist() == want
+    assert m.to(torch.int8).tolist() != want
+
+
+def test_plane_input_checks():
+    x = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="mode"):
+        vit_variants.forward_plane_torch(x, 4, "acs")
+    with pytest.raises(ValueError, match="chunk"):
+        vit_variants.forward_plane_torch(x, 4, "full", chunk=4)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        vit_variants.forward_plane_torch(x, 4, "full", chunk=16)
+    with pytest.raises(ValueError, match="float32"):
+        vit_variants.forward_plane_torch(x.double(), 4, "full")
+    with pytest.raises(ValueError, match="soft"):
+        vit_variants.plane_soft(torch.zeros((2, 10)), 1)
+
+
 def _tpu_copy(x, C, LB):
     """``tools/hbm_probe.py``'s ``copy_kernel`` (:43-44) with its specs."""
     def copy_kernel(x_ref, o_ref):
@@ -223,6 +349,10 @@ _WRAPPERS = {
     "scale_copy": lambda: hbm_probe.scale_copy_cuda(torch.zeros((8, 16, 4))),
     "decision_plane": lambda: hbm_probe.decision_plane_cuda(
         torch.zeros((8, 16, 4))),
+    "forward_plane": lambda: vit_variants.forward_plane_cuda(
+        torch.zeros((2, 8, 16)), 4),
+    "vit_split_fwd": lambda: vit_split.fwd(torch.zeros((2, 16, 16)), 4,
+                                           chunk=16, unroll=True),
 }
 
 
@@ -240,7 +370,8 @@ def test_stage_input_checks():
         vit_variants2.forward_words_stage_torch(x[:, :15], "full")
 
 
-@pytest.mark.parametrize("mod", [vit_variants2, vit_split2, hbm_probe],
+@pytest.mark.parametrize("mod", [vit_variants2, vit_split2, hbm_probe,
+                                 vit_variants, vit_split],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_probe_main_without_a_card_fails(mod, capsys):
     if torch.cuda.is_available():

@@ -178,7 +178,9 @@ new = {"dabjax_torch.cli", "dabjax_torch.__main__",
        "dabjax_torch.parallel.multihost", "dabjax_torch.runtime.scan",
        "dabjax_torch.runtime.profiling", "dabjax_torch.tools",
        "dabjax_torch.tools.vit_variants2", "dabjax_torch.tools.vit_split2",
-       "dabjax_torch.tools.hbm_probe"}
+       "dabjax_torch.tools.hbm_probe", "dabjax_torch.tools.vit_variants",
+       "dabjax_torch.tools.vit_split", "dabjax_torch.tools.vpu_probe",
+       "dabjax_torch.tools.vpu_probe2"}
 assert new <= set(mods), new - set(mods)
 from dabjax_torch.fec import viterbi, viterbi_cuda
 from dabjax.fec.viterbi import viterbi_decode_np
