@@ -7,12 +7,14 @@ hash in ``dabjax_torch/build/``) and then, in phases, stops with a
 non-zero exit at the first failure:
 
 1. the card (nvidia-smi name and power limit) and the kernel build;
-2. kernels: the CUDA forward ACS (K1) and traceback (K2) against the
-   plain torch version and the numpy reference decoder on coded+noise,
-   near-tie and pure-noise integer soft bits at nbits 100, 768, 1024,
-   2304 and 9216, then at the main-path shapes (MSC: 4428 codewords of
-   2304 bits; FIC: 384 of 768), all bit-exact; each timed with CUDA
-   events beside its plain version;
+2. kernels: the CUDA forward ACS (K1) and traceback (K2) on coded+noise,
+   near-tie and pure-noise integer soft bits at nbits 100, 101, 768, 2304
+   and 9216 and batches of 1, 31, 33, 384 and 4428 codewords: K2 against
+   its plain torch version on K1's decisions, K1 + K2 against the numpy
+   reference decoder, all bit-exact; then at the main-path shapes (MSC:
+   4428 codewords of 2304 bits; FIC: 384 of 768) K1 and K2 against their
+   plain versions, each timed with CUDA events beside it (K2: the median
+   and spread of 5 runs);
 3. word kernels: the radix-4 word forward (K3) in the formats i8mxu, i8
    and f32 against its plain torch version (words equal element for
    element) and K3 + the word traceback (K4) against the numpy decoder,
@@ -22,15 +24,18 @@ non-zero exit at the first failure:
    K4 timed there beside them;
 4. pipeline: the 12 x 96 kbit/s EEP-A ensemble (Mode I, 96 frames, clean
    golden IQ) through ``full_ensemble_pipeline``: every FIB CRC passes and
-   every subchannel's logical frames equal the transmitted payload;
+   every subchannel's logical frames equal the transmitted payload; K1's
+   and K2's launches in one batch;
 5. receiver: ``Receiver.run()`` over a mixed MP2/DAB+ ensemble (u8 upload
    path, 64-frame blocks, audio decode on), then the same blocks with the
    audio decoded in one spawned worker process (``audio_workers=1``: the
-   same AU and MP2 counters), and one all-zero block;
+   same AU, superframe, RS and MP2 counters, summed over the services),
+   and one all-zero block;
 6. formats: the phase-4 ensemble again with ``SOFT_FMT`` i8mxu, then f32
    (K3 + K4 in place of K1 + K2), payload-exact;
 7. stages: ``pipeline_stages`` on the phase-4 ensemble under i8lane and
-   i8mxu, device ms of each prefix and of each stage;
+   i8mxu, device ms of each prefix and of each stage, the median and
+   spread of 5 rounds;
 8. entry points: ``python -m dabjax_torch info`` and ``scan`` in-process
    on a rendered ``.raw`` file, and a 3-channel ``MultiReceiver`` bank
    with one device-to-host copy per block period;
@@ -58,8 +63,11 @@ non-zero exit at the first failure:
     standard-normal inputs and bit for bit on integer inputs, with the
     FFMA / HMMA of one step and one dot (each at least the products it
     must issue); each timed beside its plain version and, for the dot
-    shapes, one ``torch.matmul`` of the same shape; then each probe's
-    ``main()`` in process, one printed line per case.
+    shapes, one ``torch.matmul`` of the same shape (the batched product
+    also at a tail width, N 4488, and beside ``torch.mm`` with f32 out,
+    its bf16 kernel's HGMMA counted in the SASS); the copy kernel against
+    ``torch.mul`` over 7 interleaved runs; then each probe's ``main()`` in
+    process, one printed line per case.
 
 The kernels' launch counts are reset just before phases 4-5 (K1, K2),
 phase 6 (K3, K4) and the probes' ``main()`` runs of phase 10 (the probe
@@ -104,11 +112,28 @@ def _cuda_ms(fn, reps: int) -> float:
     return cuda_ms(fn, reps)
 
 
-def _soft_cases(nbits: int, rng):
+def _interleaved_ms(fns: dict, runs: int, reps: int = 10) -> dict:
+    """{name: {median, min, max}} ms of each ``fns[name]()`` over ``runs``
+    runs of ``reps`` calls, the runs taken in turns (a, b, b, a, ...)."""
+    import statistics
+    times = {name: [] for name in fns}
+    for run in range(runs):
+        order = list(fns) if run % 2 == 0 else list(fns)[::-1]
+        for name in order:
+            times[name].append(_cuda_ms(fns[name], reps))
+    return {name: dict(median=statistics.median(v), min=min(v), max=max(v))
+            for name, v in times.items()}
+
+
+def _spread_text(spread: dict) -> str:
+    return ", ".join(f"{k} {v['median']:.4f} ({v['min']:.4f}-{v['max']:.4f})"
+                     for k, v in spread.items())
+
+
+def _soft_cases(nbits: int, rng, B: int = 6):
     """(name, soft [B, 4*(nbits+6)]) integer soft bits in +-127."""
     import numpy as np
     from dabjax_torch.fec import conv
-    B = 6
     bits = rng.integers(0, 2, (B, nbits), np.uint8)
     coded = np.stack([conv.encode(b) for b in bits]).astype(np.float32)
     clean = (coded * 2 - 1) * 100
@@ -120,6 +145,25 @@ def _soft_cases(nbits: int, rng):
         np.float32)
 
 
+def _k2_batches(B: int, nbits: int, rng):
+    """(name, soft [B, 4*(nbits+6)]): codeword i coded, near-tie or pure
+    noise as i % 3 (one batch of each kind when B < 3)."""
+    import numpy as np
+    cases = dict(_soft_cases(nbits, rng, B))
+    if B < 3:
+        return list(cases.items())
+    kinds = np.arange(B) % 3
+    soft = np.stack([cases[name][i] for i, name in
+                     enumerate(np.array(list(cases))[kinds])])
+    return [("mixed", soft)]
+
+
+#: K2's card checks: batch sizes (one codeword, a warp's worth and one
+#: either side of it, the FIC and MSC batches) and lengths (odd, DAB's)
+K2_BATCHES = (1, 31, 33, 384, 4428)
+K2_NBITS = (100, 101, 768, 2304, 9216)
+
+
 def phase_kernels(dev, report):
     import numpy as np
     import torch
@@ -127,18 +171,28 @@ def phase_kernels(dev, report):
     from dabjax_torch.fec import viterbi, viterbi_cuda as vc
 
     rng = np.random.default_rng(2024)
-    for nbits in (100, 768, 1024, 2304, 9216):
-        for name, soft in _soft_cases(nbits, rng):
-            want = viterbi_decode_np(soft, nbits)
-            s = torch.from_numpy(soft).to(dev)
-            got = viterbi.viterbi_decode(s, nbits).cpu().numpy()
-            plain = viterbi.viterbi_decode_torch(s, nbits).cpu().numpy()
-            _check(np.array_equal(got, want),
-                   f"kernel != numpy at nbits={nbits} ({name})")
-            _check(np.array_equal(plain, want),
-                   f"plain != numpy at nbits={nbits} ({name})")
-        print(f"kernels: nbits={nbits} coded/near_tie/pure_noise "
-              "bit-exact vs numpy and plain torch")
+    for nbits in K2_NBITS:
+        for B in K2_BATCHES:
+            for name, soft in _k2_batches(B, nbits, rng):
+                want = viterbi_decode_np(soft, nbits)
+                s = torch.from_numpy(soft).to(dev)
+                dec = vc.viterbi_forward_cuda(vc.step_soft(s, nbits))
+                got = vc.viterbi_traceback_cuda(dec, nbits)
+                plain = viterbi.viterbi_traceback_torch(
+                    vc.unpack_decisions(dec), nbits)
+                _check(torch.equal(got, plain),
+                       f"K2 != plain at B={B} nbits={nbits} ({name})")
+                _check(np.array_equal(got.cpu().numpy(), want),
+                       f"K1+K2 != numpy at B={B} nbits={nbits} ({name})")
+                _check(torch.equal(viterbi.viterbi_decode(s, nbits), got),
+                       f"viterbi_decode != K1+K2 at B={B} nbits={nbits}")
+                if B <= 33:
+                    _check(np.array_equal(viterbi.viterbi_decode_torch(
+                        s, nbits).cpu().numpy(), want),
+                        f"plain decode != numpy at B={B} nbits={nbits}")
+                del dec, plain
+        print(f"kernels: nbits={nbits} B={K2_BATCHES} coded/near_tie/"
+              "pure_noise: K2 bit-exact vs plain torch, K1+K2 vs numpy")
 
     for label, B, nbits in (("msc", 4428, 2304), ("fic", 384, 768)):
         T = nbits + 6
@@ -156,14 +210,20 @@ def phase_kernels(dev, report):
         k1_ms = _cuda_ms(lambda: vc.viterbi_forward_cuda(soft), 10)
         k1_plain = _cuda_ms(lambda: viterbi.viterbi_forward_torch(soft), 1)
         unpacked = vc.unpack_decisions(dec)
-        k2_ms = _cuda_ms(lambda: vc.viterbi_traceback_cuda(dec, nbits), 10)
+        # K2: 5 runs of 10 calls each, the median and the spread
+        k2_runs = sorted(_cuda_ms(
+            lambda: vc.viterbi_traceback_cuda(dec, nbits), 10)
+            for _ in range(5))
+        k2_ms = k2_runs[2]
         k2_plain = _cuda_ms(
             lambda: viterbi.viterbi_traceback_torch(unpacked, nbits), 1)
         print(f"kernels: {label} B={B} nbits={nbits}: K1 {k1_ms:.4f} ms "
-              f"(plain {k1_plain:.2f} ms), K2 {k2_ms:.4f} ms "
-              f"(plain {k2_plain:.2f} ms), bit-exact")
+              f"(plain {k1_plain:.2f} ms), K2 {k2_ms:.4f} ms (min "
+              f"{k2_runs[0]:.4f}, max {k2_runs[-1]:.4f}; plain "
+              f"{k2_plain:.2f} ms), bit-exact")
         report[label] = dict(k1=(err_k1, k1_ms, k1_plain),
-                             k2=(err_k2, k2_ms, k2_plain))
+                             k2=(err_k2, k2_ms, k2_plain),
+                             k2_runs_ms=k2_runs)
 
 
 def phase_words(dev, report):
@@ -272,6 +332,7 @@ def phase_pipeline(dev, report):
     from dabjax_torch.msc.subchannel import SubchGeometry
     from dabjax_torch.ofdm.demod import min_frame_samples
     from dabjax_torch.runtime.pipeline import full_ensemble_pipeline
+    from dabjax_torch.fec import viterbi_cuda as vc
 
     p, n_frames = get_mode(1), 96
     services = [ServiceSpec(label=f"S{i:02d}", sid=0x8100 + i, subch_id=i,
@@ -296,12 +357,19 @@ def phase_pipeline(dev, report):
                   geoms=geoms, rows=rows)
     pipe = full_ensemble_pipeline(p, geoms, device=dev)
     n_fib, n_lf = _check_ensemble(*pipe(rows), golden)
+    # the kernels' launches in one batch (counts read as differences: the
+    # main path's counts run on)
+    before = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES)
+    pipe(rows)
+    per_batch = dict(k1=vc.FORWARD_LAUNCHES - before[0],
+                     k2=vc.TRACEBACK_LAUNCHES - before[1])
     sec = _cuda_ms(lambda: pipe(rows), 5) / 1e3
     rt = n_frames * p.T_F / FS / sec
     print(f"pipeline: 12 subchannels x {n_lf} logical frames exact, "
           f"{n_fib} FIBs pass CRC; {sec:.4f} s per {n_frames}-frame "
-          f"batch = {rt:.2f}x realtime")
-    report["pipeline"] = dict(seconds_per_batch=sec, realtime=rt)
+          f"batch = {rt:.2f}x realtime; launches per batch {per_batch}")
+    report["pipeline"] = dict(seconds_per_batch=sec, realtime=rt,
+                              launches_per_batch=per_batch)
     return golden
 
 
@@ -345,7 +413,8 @@ def phase_receiver(dev, report):
     _check(m.mp2_frames_ok > 0, "no MP2 frame decoded")
     p = get_mode(1)
     report["receiver"] = dict(wall_s=dt, signal_s=3 * 64 * p.T_F / FS,
-                              au_ok=m.au_ok, mp2_frames_ok=m.mp2_frames_ok)
+                              au_ok=m.au_ok, mp2_frames_ok=m.mp2_frames_ok,
+                              superframes_ok=m.superframes_ok)
 
     # the same blocks with the audio decoded in a spawned worker process
     # (the port's own audio pool: the card machine has no jax)
@@ -358,18 +427,20 @@ def phase_receiver(dev, report):
         dtw = time.perf_counter() - t0
     finally:
         rx.close()
-    counters = ("au_ok", "au_bad", "mp2_frames_ok", "mp2_frames_bad")
+    counters = ("au_ok", "au_bad", "superframes_ok", "superframes_bad",
+                "rs_corrected", "mp2_frames_ok", "mp2_frames_bad")
     print(f"receiver: audio_workers=1: {mw.dashboard()}; 3 blocks in "
           f"{dtw:.2f} s wall")
     _check(mw.fic_ratio == 1.0, f"audio_workers=1: fic_ratio {mw.fic_ratio}")
     _check(all(getattr(mw, f) == getattr(m, f) for f in counters),
-           "audio_workers=1: AU/MP2 counters differ from the threaded run: "
+           "audio_workers=1: audio counters differ from the threaded run: "
            + ", ".join(f"{f} {getattr(mw, f)} vs {getattr(m, f)}"
                        for f in counters))
-    print("receiver: audio_workers=1 gives the threaded run's AU and MP2 "
-          "counters")
+    print("receiver: audio_workers=1 gives the threaded run's AU, "
+          "superframe, RS and MP2 counters: " + ", ".join(
+              f"{f} {getattr(m, f)}" for f in counters))
     report["receiver"]["workers"] = dict(
-        wall_s=dtw, au_ok=mw.au_ok, mp2_frames_ok=mw.mp2_frames_ok)
+        wall_s=dtw, **{f: getattr(mw, f) for f in counters})
 
     # one all-zero block: finite, zero soft bits (subnormal epsilon)
     for kind, fill in (("f32", 0.0), ("u8", 128)):
@@ -417,8 +488,14 @@ def phase_formats(dev, report, golden):
     report["formats"] = out
 
 
+#: rounds of the stage timing: each round times every prefix (mean of 5
+#: calls), and a stage's spread is over the rounds
+STAGE_ROUNDS = 5
+
+
 def phase_stages(dev, report, golden):
     import math
+    import statistics
     from dabjax_torch.fec import viterbi_cuda as vc
     from dabjax_torch.runtime.pipeline import pipeline_stages
 
@@ -431,19 +508,31 @@ def phase_stages(dev, report, golden):
             for name, fn in fns.items():
                 v = float(fn(rows))
                 _check(math.isfinite(v), f"stage {name} ({fmt}) gave {v}")
-            ms = {name: _cuda_ms(lambda f=fn: f(rows), 5)
-                  for name, fn in fns.items()}
-            stages = {
+            rounds = [{name: _cuda_ms(lambda f=fn: f(rows), 5)
+                       for name, fn in fns.items()}
+                      for _ in range(STAGE_ROUNDS)]
+            stage_rounds = [{
                 "demod": ms["demod"],
                 "fic": ms["fic"] - ms["demod"],
                 "deint_depunct": ms["deint_depunct"] - ms["fic"],
                 "viterbi_forward": ms["viterbi_forward"] - ms["deint_depunct"],
                 "traceback_dispersal": ms["full"] - ms["viterbi_forward"]}
-            print(f"stages ({fmt}): prefix ms " + ", ".join(
-                f"{k} {v:.4f}" for k, v in ms.items()))
-            print(f"stages ({fmt}): stage ms " + ", ".join(
-                f"{k} {v:.4f}" for k, v in stages.items()))
-            out[fmt] = dict(prefix_ms=ms, stage_ms=stages)
+                for ms in rounds]
+            ms = {name: statistics.median(r[name] for r in rounds)
+                  for name in fns}
+            stages = {name: statistics.median(r[name] for r in stage_rounds)
+                      for name in stage_rounds[0]}
+            spread = {name: (min(r[name] for r in stage_rounds),
+                             max(r[name] for r in stage_rounds))
+                      for name in stages}
+            print(f"stages ({fmt}): prefix ms (median of {STAGE_ROUNDS} "
+                  "rounds) " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         ms.items()))
+            print(f"stages ({fmt}): stage ms, median (min-max) " +
+                  ", ".join(f"{k} {v:.4f} ({spread[k][0]:.4f}-"
+                            f"{spread[k][1]:.4f})" for k, v in stages.items()))
+            out[fmt] = dict(prefix_ms=ms, stage_ms=stages,
+                            stage_spread_ms=spread)
     finally:
         vc.SOFT_FMT = "i8lane"
     report["stages"] = out
@@ -539,6 +628,10 @@ def phase_trace(dev, report, golden):
     report["trace"] = dict(kernel_events=len(kernels), kernel_ms=busy)
 
 
+#: runs in turns of the copy kernel and torch.mul (phase 10)
+COPY_REPS = 7
+
+
 def _probe_checks(dev, report):
     """Phase 10, checks: every probe kernel against its plain version at
     the main-path shape, each timed beside it."""
@@ -625,9 +718,19 @@ def _probe_checks(dev, report):
         print(f"probes: hbm {key}: {ms:.4f} ms = {nbytes / ms / 1e6:.1f} "
               f"GB/s (plain {plain_ms:.4f} ms), bit for bit")
     # the library's own call for the same product (torch's elementwise
-    # multiply), as the copy's yardstick
-    report["hbm_copy"]["library_ms"] = _cuda_ms(
-        lambda: torch.mul(xb, 1.000001), 10)
+    # multiply), as the copy's yardstick: COPY_REPS runs in turns
+    xb = hbm_probe.input_block().to(dev)
+    spread = _interleaved_ms(
+        {"kernel": lambda: hbm_probe.scale_copy_cuda(xb),
+         "mul": lambda: torch.mul(xb, 1.000001)}, COPY_REPS)
+    nbytes = report["hbm_copy"]["nbytes"]
+    report["hbm_copy"].update(ms=spread["kernel"]["median"],
+                              gb_per_s=nbytes / spread["kernel"]["median"]
+                              / 1e6,
+                              library_ms=spread["mul"]["median"],
+                              spread_ms=spread)
+    print(f"probes: scale_copy vs torch.mul over {COPY_REPS} runs in turns, "
+          f"ms median (min-max): {_spread_text(spread)}")
 
 
 def _plane_checks(report, soft, k3_words):
@@ -779,6 +882,8 @@ def _chain_checks(dev, report):
 #: float32 sums of the same products in another order (FMA chains on the
 #: card, blocked products in torch), |kernel - plain| over max |plain|
 DOT_TOL = 1e-5
+#: a batched-product width that ends in a partial 64-column tile
+BATCHED_TAIL_N = 4488
 
 
 def _dot_checks(dev, report):
@@ -796,7 +901,9 @@ def _dot_checks(dev, report):
     steps_sass, dots_sass = vd.sass_counts(), vpu_probe2.dot_sass_counts()
     want = {f"{m} f32 K={k}": 32 * k for m in ("dot", "dot_acs")
             for k in vd.KS}
-    want.update({"repeat_add f32": 6, "dot bf16 K=16": 8})
+    # the batched bf16 product: one wgmma (HGMMA) a 64-row slab, 4 a tile
+    want.update({"repeat_add f32": 6, "dot bf16 K=16": 8,
+                 "batched bf16 K=16": 4})
     _check(all(steps_sass[c] >= n for c, n in want.items()),
            f"a step kernel lost work: {steps_sass}, want at least {want}")
     for rows, kdim, tag in vpu_probe2.DOT_SHAPES:
@@ -862,27 +969,42 @@ def _dot_checks(dev, report):
           f"{steps_row['library_ms'] * 1e3:.2f} us a step)")
     report["dot_steps"] = steps_row
 
+    # the batched product at the probe's N (32 steps x LB 4480) and at a
+    # tail N (not a multiple of D4's 64-column tiles); timed at the
+    # probe's N in 5 runs in turns with its plain version, one
+    # torch.matmul (out in the input's dtype) and the library call with
+    # the kernel's function (f32 out: torch.mm's out_dtype for bf16)
     batched = {}
-    worst = dict(abs=0.0, rel=0.0)
     for dtype in vd.DTYPES:
+        worst = dict(abs=0.0, rel=0.0)
+        for n in (32 * 4480, BATCHED_TAIL_N):
+            s, x = (t.to(dev) for t in vd.batched_inputs(16, n, 1, dtype))
+            hold(vd.dot_batched_cuda(s, x), vd.dot_batched_torch(s, x),
+                 f"batched {dtype} N={n}")
+            si, xi = ints((256, 16), 1, dtype), ints((16, n), 3, dtype)
+            _check(torch.equal(vd.dot_batched_cuda(si, xi),
+                               vd.dot_batched_torch(si, xi)),
+                   f"batched {dtype} N={n}: not exact on integer inputs")
         s, x = (t.to(dev) for t in vd.batched_inputs(16, 4480, 32, dtype))
-        hold(vd.dot_batched_cuda(s, x), vd.dot_batched_torch(s, x),
-             f"batched {dtype}")
-        si, xi = ints((256, 16), 1, dtype), ints((16, 32 * 4480), 3, dtype)
-        _check(torch.equal(vd.dot_batched_cuda(si, xi),
-                           vd.dot_batched_torch(si, xi)),
-               f"batched {dtype}: not exact on integer inputs")
+        fns = {"kernel": lambda: vd.dot_batched_cuda(s, x),
+               "plain": lambda: vd.dot_batched_torch(s, x),
+               "matmul": lambda: torch.matmul(s, x)}
+        if dtype == "bfloat16":
+            fns["library"] = lambda: torch.mm(s, x, out_dtype=torch.float32)
+        spread = _interleaved_ms(fns, 5)
+        med = {k: v["median"] for k, v in spread.items()}
         batched[dtype] = dict(
-            ms=_cuda_ms(lambda: vd.dot_batched_cuda(s, x), 10),
-            plain_ms=_cuda_ms(lambda: vd.dot_batched_torch(s, x), 10),
-            library_ms=_cuda_ms(lambda: torch.matmul(s, x), 10),
+            err=worst["abs"], rel_err=worst["rel"], ms=med["kernel"],
+            plain_ms=med["plain"], matmul_ms=med["matmul"],
+            library_ms=med.get("library", med["matmul"]), spread_ms=spread,
             x_bytes=x.numel() * x.element_size())
-        print(f"probes: vit_dotshapes batched {dtype}: kernel "
-              f"{batched[dtype]['ms']:.4f} ms (plain "
-              f"{batched[dtype]['plain_ms']:.4f}, torch.matmul "
-              f"{batched[dtype]['library_ms']:.4f} ms with {dtype} out)")
-    report["dot_batched"] = dict(err=worst["abs"], rel_err=worst["rel"],
-                                 tolerance=DOT_TOL, **batched)
+        print(f"probes: vit_dotshapes batched {dtype}: N 143360 and "
+              f"{BATCHED_TAIL_N} within {DOT_TOL} (worst {worst['rel']:.2e})"
+              f", exact on integers; ms median (min-max) of 5 runs: "
+              f"{_spread_text(spread)}")
+    report["dot_batched"] = dict(tolerance=DOT_TOL,
+                                 sass_hgmma=steps_sass["batched bf16 K=16"],
+                                 **batched)
 
     dots = {}
     for (rows, kdim, tag), (_, x, w) in zip(vpu_probe2.DOT_SHAPES,
@@ -956,6 +1078,7 @@ def phase_probes(dev, report):
                 "vpu_probe2": vpu_probe2.LAUNCHES,
                 "dot_steps": vit_dotshapes.LAUNCHES,
                 "dot_batched": vit_dotshapes.BATCHED_LAUNCHES,
+                "dot_batched_bf16": vit_dotshapes.BATCHED_BF16_LAUNCHES,
                 "dots_chain": vpu_probe2.DOT_LAUNCHES}
     _check(all(n > 0 for n in launches.values()),
            f"the probes did not launch every kernel: {launches}")
@@ -1036,14 +1159,15 @@ def _kernel_lines(report, launches):
     n_pair = vpu_probe2.SHAPE[0] * vpu_probe2.SHAPE[1]
     n_batch = 32 * 4480
     bm = chained["per_shape"]["bm [256,8]"]
-    f32 = batched["float32"]
+    f32, bf16 = batched["float32"], batched["bfloat16"]
     return [
         line("viterbi_forward_acs", src, "dabjax/fec/viterbi_pallas.py:85",
              launches["k1"], err["k1"], msc["k1"][1], msc["k1"][2], None,
              _bound(B * T * 4 + B * T * 8, B * T * acs2, "lane_op")),
         line("viterbi_traceback", src, "dabjax/fec/viterbi_pallas.py:218",
              launches["k2"], err["k2"], msc["k2"][1], msc["k2"][2], None,
-             _bound(B * T * 4 + B * nbits * 4, B * T * 3, "lane_op")),
+             _bound(B * T * 4 + B * nbits * 4, B * T * 3, "lane_op"),
+             runs_ms=msc["k2_runs_ms"]),
         line("viterbi_forward_acs_words", src,
              "dabjax/fec/viterbi_pallas.py:149", launches["k3"], err["k3"],
              words["k3"][1], words["k3"][2], None,
@@ -1109,12 +1233,23 @@ def _kernel_lines(report, launches):
              tolerance=steps["tolerance"],
              sass_per_step=steps["sass_per_step"]),
         line("dot_batched", dots, "tools/vit_dotshapes.py:92",
-             pl["dot_batched"], batched["err"], f32["ms"], f32["plain_ms"],
+             pl["dot_batched"], f32["err"], f32["ms"], f32["plain_ms"],
              f32["library_ms"],
              _bound(256 * 16 * 4 + f32["x_bytes"] + 256 * n_batch * 4,
                     256 * 16 * n_batch * 2, "fp32_flop"),
-             rel_err=batched["rel_err"], tolerance=batched["tolerance"],
-             bf16=batched["bfloat16"]),
+             rel_err=f32["rel_err"], tolerance=batched["tolerance"],
+             spread_ms=f32["spread_ms"]),
+        # the bf16 half of row 13 (D4, wgmma + TMA); the library call is
+        # torch.mm with f32 out, the kernel's function
+        line("dot_batched_bf16", dots, "tools/vit_dotshapes.py:92",
+             pl["dot_batched_bf16"], bf16["err"], bf16["ms"],
+             bf16["plain_ms"], bf16["library_ms"],
+             _bound(256 * 16 * 2 + bf16["x_bytes"] + 256 * n_batch * 4,
+                    256 * 16 * n_batch * 2, "bf16_flop"),
+             rel_err=bf16["rel_err"], tolerance=batched["tolerance"],
+             matmul_bf16_out_ms=bf16["matmul_ms"],
+             spread_ms=bf16["spread_ms"],
+             sass_hgmma_per_tile=batched["sass_hgmma"]),
         line("dots_chain", dots, "tools/vpu_probe2.py:78",
              pl["dots_chain"], chained["err"], bm["ms"], bm["plain_ms"],
              bm["library_ms"], _bound(0, 256 * 8 * 4480 * 2, "fp32_flop"),

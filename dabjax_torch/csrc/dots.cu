@@ -17,7 +17,8 @@
 // and latency of a chain of small products, as on the TPU.  The batched
 // product writes a [256, STEPS * LB] f32 result (147 MB at K 16, LB 4480,
 // 32 steps): it is bound by that store (44 us at 3.35 TB/s), not by its
-// 1.2 GFLOP.
+// 1.2 GFLOP.  So D4 (bf16) is built around the store: its tensor-core
+// work is 1.2 us of the 44.
 //
 // Designs.
 //   D1 dot_steps_f32 (probe, f32): one block of 128 threads owns 16
@@ -42,8 +43,20 @@
 //   D3 dot_batched_f32: one thread per output column, X's column in
 //     registers, S broadcast from shared memory, rows stored in order (a
 //     warp writes 128 contiguous bytes per row).
-//   D4 dot_batched_bf16: one warp per 8-column tile, the 16 A fragments of
-//     S in registers, 16 mma.sync per tile, each fragment stored at once.
+//   D4 dot_batched_bf16 (wgmma and TMA): a persistent grid, one block of
+//     five warps per SM, walks 64-column tiles.  The producer warp brings
+//     each X tile [16, 64] by TMA (128-byte swizzle, zero-filled past N)
+//     into a ring of kD4Stages buffers with full / empty mbarriers.  The
+//     consumer warpgroup holds S as wgmma A fragments in registers (16 a
+//     thread) and issues one wgmma.m64n64k16 per 64-row slab, four a tile,
+//     into f32 accumulators.  The epilogue writes them to a staged
+//     [256, 64] f32 tile in shared memory in the TMA's 128-byte-swizzled
+//     layout (no bank conflicts) and leaves by two TMA stores of [256, 32]
+//     boxes: whole 128-byte lines, clipped at N, evict-first in L2.  The
+//     staged tile is double-buffered (cp.async.bulk.wait_group.read before
+//     reuse), so one tile drains while the next computes.  The tensor
+//     maps come from the driver's cuTensorMapEncodeTiled, looked up in the
+//     already loaded libcuda (no -lcuda at link).
 //   D5 dots_chain (make_dots): n_dots chained products
 //     acc = W @ X[(i % 8) * kdim :][:kdim] + acc * 1e-9, W and the block's
 //     [8 * kdim, 16] slice of X in shared memory.  Dots i and i + 8 are the
@@ -59,11 +72,13 @@
 // vit_dotshapes.sass_counts() and vpu_probe2.dot_sass_counts() count the
 // FFMA / HMMA of one step and of one dot in the built library: the step
 // loop and the pass loop are not unrolled, so a kernel's count is one
-// step's, or one pass's of 8 dots.
+// step's, or one pass's of 8 dots; the HGMMA of D4 are those of one tile.
 
 #include <cstdint>
+#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 namespace {
 
@@ -360,33 +375,216 @@ dot_batched_f32(const float* __restrict__ s, const float* __restrict__ x,
   }
 }
 
-// D4: [256, 16] @ [16, n] in bf16 on the tensor cores, f32 out; one warp
-// per 8-column tile, grid-strided.
-__global__ void __launch_bounds__(kStepThreads)
-dot_batched_bf16(const unsigned short* __restrict__ s,
-                 const unsigned short* __restrict__ x,
-                 float* __restrict__ out, long long n) {
-  const int lane = threadIdx.x & 31;
-  const long long tiles = n / 8;
-  const long long warps = static_cast<long long>(gridDim.x) * 4;
-  uint32_t a[16][4];
+// D4: [256, 16] @ [16, n] in bf16 on the tensor cores (wgmma), f32 out,
+// in 64-column tiles; see the design note at the top.
+constexpr int kD4Cols = 64;                       // columns of a tile
+constexpr int kD4Stages = 3;                      // X tiles in flight
+constexpr int kD4XBytes = 16 * kD4Cols * 2;       // an X tile, bf16
+constexpr int kD4Box = kRows * 32 * 4;            // a [256, 32] f32 box
+constexpr int kD4OutBytes = 2 * kD4Box;           // a staged output tile
+constexpr int kD4OutBufs = 2;                     // staged tiles
+constexpr int kD4Threads = 160;                   // 4 consumer warps + 1
+constexpr int kD4Smem = kD4OutBufs * kD4OutBytes + kD4Stages * kD4XBytes
+                        + 2 * kD4Stages * 8 + 1024;  // + 1 KB to align
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// TMA: box at (column c0, row c1) of the map -> shared dst, completion
+// counted on the mbarrier
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1) : "memory");
+}
+
+// TMA: shared src -> box at (column c0, row c1), clipped at the edges.
+// The lines are marked evict-first in L2: nothing reads the output back,
+// and without the hint the stores ran no faster than torch.mm's, well
+// below the copy rate.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "{\n.reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      ".L2::cache_hint [%0, {%2, %3}], [%1], pol;\n}"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The wgmma descriptor of an X tile: B is MN-major ([16 k][64 n] bf16, a
+// k row 128 bytes), 128-byte swizzle.  A swizzle atom is 8 k rows (1024
+// bytes); the stride byte offset steps to the next 8 k rows.  The
+// leading byte offset steps to the next 64 columns, which an N = 64
+// product never reads: it is set to the same 1024.
+__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4)
+         | static_cast<uint64_t>(1024 >> 4) << 16
+         | static_cast<uint64_t>(1024 >> 4) << 32
+         | static_cast<uint64_t>(1) << 62;
+}
+
+// d = A @ B for one 64-row slab: A (rows of S) from registers, B from the
+// X tile (MN-major: imm-trans-b 1), d not read (scale-d 0)
+__device__ __forceinline__ void wgmma_slab(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t bdesc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(0));
+}
+
+// the accumulators are written by the asynchronous product: their uses
+// must follow the wait
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
-  for (int rt = 0; rt < 16; ++rt) load_a(a[rt], s, rt, lane);
-  for (long long tile = blockIdx.x * 4LL + (threadIdx.x >> 5); tile < tiles;
-       tile += warps) {
-    uint32_t b0, b1;
-    load_b(b0, b1, x, n, tile * 8 + lane / 4, lane);
-    const size_t c = tile * 8 + (lane % 4) * 2;
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__global__ void __launch_bounds__(kD4Threads, 1)
+dot_batched_bf16(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap omap,
+                 const unsigned short* __restrict__ s, int tiles,
+                 long long n) {
+  extern __shared__ __align__(1024) unsigned char d4_smem[];
+  // 1024-byte alignment for the swizzle atoms: [staged tiles][X ring]
+  // [full barriers][empty barriers]
+  const uint32_t raw = smem_u32(d4_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = d4_smem + (base - raw);
+  const uint32_t xs = base + kD4OutBufs * kD4OutBytes;
+  const uint32_t full = xs + kD4Stages * kD4XBytes;
+  const uint32_t empty = full + 8 * kD4Stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kD4Stages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {                                // producer
+    if (lane == 0) {
+      for (int i = 0, tile = blockIdx.x; tile < tiles;
+           ++i, tile += gridDim.x) {
+        const int st = i % kD4Stages;
+        mbar_wait(empty + 8 * st, ((i / kD4Stages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, kD4XBytes);
+        tma_load_2d(xs + st * kD4XBytes, &xmap, full + 8 * st,
+                    tile * kD4Cols, 0);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: warp w holds rows 16w .. 16w + 15 of each slab
+  uint32_t a[4][4];
 #pragma unroll
-    for (int rt = 0; rt < 16; ++rt) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(d, a[rt], b0, b1);
-      const size_t r = 16 * rt + lane / 4;
-      *reinterpret_cast<float2*>(out + r * n + c) = make_float2(d[0], d[1]);
-      *reinterpret_cast<float2*>(out + (r + 8) * n + c) =
-          make_float2(d[2], d[3]);
+  for (int slab = 0; slab < 4; ++slab) load_a(a[slab], s, 4 * slab + warp,
+                                              lane);
+  float d[4][32];
+#pragma unroll
+  for (int slab = 0; slab < 4; ++slab)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[slab][i] = 0.f;
+  const int q = lane & 3;
+  for (int i = 0, tile = blockIdx.x; tile < tiles; ++i, tile += gridDim.x) {
+    const int st = i % kD4Stages;
+    mbar_wait(full + 8 * st, (i / kD4Stages) & 1);
+    const uint64_t bdesc = x_desc(xs + st * kD4XBytes);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int slab = 0; slab < 4; ++slab) wgmma_slab(d[slab], a[slab], bdesc);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+    for (int slab = 0; slab < 4; ++slab) fence_acc(d[slab]);
+    mbar_arrive(empty + 8 * st);                  // X tile consumed
+
+    // the staged buffer's last store (tile i - kD4OutBufs) must have read it
+    const int buf = i % kD4OutBufs;
+    if (threadIdx.x == 0)
+      asm volatile("cp.async.bulk.wait_group.read %0;"
+                   :: "n"(kD4OutBufs - 1) : "memory");
+    asm volatile("bar.sync 1, 128;" ::: "memory");
+    // C fragment: d[4j + e] at row 16 warp + lane / 4 (+ 8 for e >= 2),
+    // column 8j + 2q (+ 1 for odd e); the [256, 32] box of column half
+    // j / 4 keeps 16-byte chunk c of row r at chunk c ^ (r & 7)
+    unsigned char* out = sm + buf * kD4OutBytes;
+#pragma unroll
+    for (int slab = 0; slab < 4; ++slab) {
+      const int row = 64 * slab + 16 * warp + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int chunk = 2 * (j & 3) + (q >> 1);
+        unsigned char* p = out + (j >> 2) * kD4Box + row * 128
+                           + ((chunk ^ (row & 7)) << 4) + (q & 1) * 8;
+        *reinterpret_cast<float2*>(p) =
+            make_float2(d[slab][4 * j], d[slab][4 * j + 1]);
+        *reinterpret_cast<float2*>(p + 8 * 128) =
+            make_float2(d[slab][4 * j + 2], d[slab][4 * j + 3]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, 128;" ::: "memory");
+    if (threadIdx.x == 0) {
+      const int c0 = tile * kD4Cols;
+      const uint32_t src = base + buf * kD4OutBytes;
+      tma_store_2d(&omap, src, c0, 0);
+      if (c0 + 32 < n) tma_store_2d(&omap, src + kD4Box, c0 + 32, 0);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     }
   }
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // D5: ndots (a multiple of 8) chained products acc = W @ X[(i % 8)
@@ -509,6 +707,75 @@ int last_error(int rc) {
   return rc ? rc : err;
 }
 
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, from the libcuda the CUDA runtime
+// has loaded (the library links no -lcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(
+        dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A row-major [rows, cols] tensor of `esize`-byte elements, boxes of
+// [box_rows, box_cols], 128-byte swizzle.  Returns 0, or
+// cudaErrorSharedObjectSymbolNotFound without the driver entry point, or
+// kEncodeFailed + the driver's CUresult.
+constexpr int kEncodeFailed = 10000;
+
+int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                  const void* ptr, long long cols, int rows, int box_cols,
+                  int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr)
+    return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+int launch_batched_bf16(const void* s, const void* x, float* out,
+                        long long n, cudaStream_t st) {
+  alignas(64) CUtensorMap xmap, omap;
+  int rc = tensor_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, n,
+                         16, kD4Cols, 16);
+  if (rc == 0)
+    rc = tensor_map_2d(&omap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, n,
+                       kRows, 32, kRows);
+  int dev = 0, sms = 0;
+  if (rc == 0) rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        dot_batched_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kD4Smem));
+  if (rc) return rc;
+  const long long tiles = (n + kD4Cols - 1) / kD4Cols;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  dot_batched_bf16<<<grid, kD4Threads, kD4Smem, st>>>(
+      xmap, omap, static_cast<const unsigned short*>(s),
+      static_cast<int>(tiles), n);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -553,21 +820,17 @@ int dabjax_probe_dot_steps(const void* s, const void* x, void* out, int mode,
 }
 
 // s [256][k], x [k][n], out [256][n] f32; dtype 0 f32 (k 8 or 16), 1 bf16
-// (k 16); n a multiple of 8
+// (k 16; x and out 16-byte aligned, as the tensor maps need); n a
+// multiple of 8
 int dabjax_probe_dot_batched(const void* s, const void* x, void* out,
                              int dtype, int k, long long n, void* stream) {
   if (n <= 0 || n % 8) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   if (dtype == kBF16) {
-    if (k != 16) return static_cast<int>(cudaErrorInvalidValue);
-    const long long blocks = (n / 8 + 3) / 4;
-    const unsigned grid =
-        static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
-    dot_batched_bf16<<<grid, kStepThreads, 0, st>>>(
-        static_cast<const unsigned short*>(s),
-        static_cast<const unsigned short*>(x), o, n);
-    return last_error(0);
+    if (k != 16 || n > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return last_error(launch_batched_bf16(s, x, o, n, st));
   }
   if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kBatchThreads - 1) / kBatchThreads;

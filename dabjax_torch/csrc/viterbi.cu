@@ -99,28 +99,136 @@ forward_acs(const int32_t* __restrict__ soft,   // [B, T] packed int8x4
 // sequence); with radix-2 decisions the decoded bit of step t is the
 // state's LSB, as in viterbi_decode_np.
 //
-// What bounds it on the card: a sequential chain of T dependent 8-byte
-// loads per codeword (the next state selects which decision bit to read)
-// and B * nbits int32 stores.  Design: one thread per codeword; the load
-// address does not depend on the state, so the loads of successive steps
-// can be in flight together, and only the bit extraction is on the
-// dependent chain.  The decisions were written by K1 just before and are
-// mostly still in the 50 MB L2 at the main-path shapes.
-__global__ void __launch_bounds__(128)
+// What bounds it on the card: the bytes are T 8-byte decision words in
+// and nbits int32 bits out per codeword (0.0244 ms at the MSC shape, 4428
+// codewords x 2310 steps), but each codeword is a chain of T dependent
+// steps (the state picks the decision bit of the next step), so the
+// chain's latency is the limit: about 25 cycles a step.
+// Design: a warp owns kTbCw = 16 codewords and a block of two warps 32, so
+// the 4428 MSC codewords are 139 blocks, one on each SM (seven take two),
+// each with two warps on two of the SM's four schedulers.  With one warp of
+// 32 codewords an SM, every copy, shuffle and store of a tile waited out its
+// own latency and the kernel ran at several times the chain's time; 16
+// codewords a warp measured faster than 8 or 4.  A warp walks backwards in
+// tiles of 32 steps whose edges are multiples of 32 in t.  A tile's
+// decisions, 16 rows of 256 contiguous bytes, are copied into shared memory
+// by coalesced cp.async (16 bytes a copy when every row is 16-byte aligned,
+// i.e. T even; 8 bytes otherwise), kTbStages - 1 tiles ahead of the walk;
+// the copies are branch-free (cp.async zero-fills what it does not copy).
+// Each lane then loads its row's 32 words into registers (compile-time
+// indices; lanes l and l + 16 share row l % 16), so the chain of a step is a
+// select, a shift and two logic ops with no memory access.  A lane gathers
+// the tile's 32 bits in one register; the warp transposes them by shuffle
+// (lane r's word to every lane) and writes each codeword's 32 bits as one
+// 128-byte store (aligned when nbits * 4 is a multiple of 128, as for every
+// DAB size).  The top tile, partial when T is not a multiple of 32, is
+// zero-filled past T: zero decisions keep the start state 0, so the walk
+// needs no guard.  Rows of codewords >= B are zero-filled too; bits t >=
+// nbits and codewords >= B are masked at the store.
+constexpr int kTbSteps = 32;                  // steps of a tile
+constexpr int kTbCw = 16;                     // codewords of a warp
+constexpr int kTbWarps = 2;                   // warps of a block
+constexpr int kTbStages = 4;                  // tiles in shared memory
+constexpr int kTbRow = kTbSteps * 8 + 16;     // bytes of a row (padded)
+constexpr int kTbTile = kTbCw * kTbRow;       // bytes of a warp's tile
+
+// cp.async of kBytes, or kBytes of zeros when !valid (src-size 0; src
+// must still be a valid address)
+template <int kBytes>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src,
+                                               bool valid) {
+  const int n = valid ? kBytes : 0;
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(dst), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+                 :: "r"(dst), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+}
+
+// Copy the decisions of tile k (steps 32k .. 32k + 31) of codewords
+// cw0 .. cw0 + kTbCw - 1 into the shared tile at `tile`, zeros past T and
+// for codewords >= B.
+template <bool kVec16>
+__device__ __forceinline__ void tb_issue(const uint2* __restrict__ dec,
+                                         uint32_t tile, int cw0, int B, int T,
+                                         int k, int lane) {
+  constexpr int kWords = kVec16 ? 2 : 1;       // decision words a copy
+  const int j = (lane * kWords) % kTbSteps;    // the lane's step in a row
+  const int r0 = lane * kWords / kTbSteps;
+  const bool in_t = k * kTbSteps + j < T;      // j + 1 too when kVec16
+#pragma unroll
+  for (int i = 0; i < kTbCw / kWords; ++i) {  // a warp's copy: kWords rows
+    const int r = i * kWords + r0;
+    const bool valid = in_t && cw0 + r < B;
+    const uint2* src =
+        valid ? dec + static_cast<size_t>(cw0 + r) * T + k * kTbSteps + j
+              : dec;
+    cp_async_zfill<8 * kWords>(tile + r * kTbRow + j * 8, src, valid);
+  }
+}
+
+template <bool kVec16>
+__global__ void __launch_bounds__(32 * kTbWarps)
 traceback(const uint2* __restrict__ dec,  // [B, T] decision words
           int32_t* __restrict__ bits,     // [B, nbits]
           int B, int T, int nbits) {
-  const int cw = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cw >= B) return;
-  const uint2* d = dec + static_cast<size_t>(cw) * T;
-  int32_t* out = bits + static_cast<size_t>(cw) * nbits;
+  __shared__ __align__(16) char tiles[kTbWarps][kTbStages][kTbTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cw0 = (blockIdx.x * kTbWarps + warp) * kTbCw;
+  if (cw0 >= B) return;                       // whole warps
+  const int top = (T - 1) / kTbSteps;
+  const uint32_t base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(tiles[warp]));
+#pragma unroll 1
+  for (int s = 0; s < kTbStages - 1; ++s) {
+    if (top - s >= 0)
+      tb_issue<kVec16>(dec, base + (top - s) % kTbStages * kTbTile, cw0, B,
+                       T, top - s, lane);
+    cp_async_commit();                        // one group a tile, maybe empty
+  }
   int state = 0;
-  for (int t = T - 1; t >= 0; --t) {
-    if (t < nbits) out[t] = state & 1;
-    const uint2 w = d[t];
-    const unsigned word = (state < 32) ? w.x : w.y;
-    const int bit = (word >> (state & 31)) & 1;
-    state = (state >> 1) | (bit << 5);
+  for (int k = top; k >= 0; --k) {
+    const int kn = k - (kTbStages - 1);       // its buffer was read at k + 1
+    if (kn >= 0)
+      tb_issue<kVec16>(dec, base + kn % kTbStages * kTbTile, cw0, B, T, kn,
+                       lane);
+    cp_async_commit();
+    cp_async_wait<kTbStages - 1>();           // tile k has landed
+    __syncwarp();
+    const char* row =
+        tiles[warp][k % kTbStages] + (lane % kTbCw) * kTbRow;
+    uint2 w[kTbSteps];
+#pragma unroll
+    for (int j = 0; j < kTbSteps; ++j)
+      w[j] = *reinterpret_cast<const uint2*>(row + j * 8);
+    __syncwarp();                             // the buffer may be refilled
+    unsigned mask = 0;
+#pragma unroll
+    for (int j = kTbSteps - 1; j >= 0; --j) {
+      mask |= static_cast<unsigned>(state & 1) << j;
+      const unsigned word = (state & 32) ? w[j].y : w[j].x;
+      state = (state >> 1) |
+              static_cast<int>(((word >> (state & 31)) & 1u) << 5);
+    }
+    const int t = k * kTbSteps + lane;
+#pragma unroll
+    for (int r = 0; r < kTbCw; ++r) {
+      const unsigned m = __shfl_sync(kFull, mask, r);
+      if (cw0 + r < B && t < nbits)
+        bits[static_cast<size_t>(cw0 + r) * nbits + t] =
+            static_cast<int32_t>((m >> lane) & 1u);
+    }
   }
 }
 
@@ -292,11 +400,15 @@ int dabjax_viterbi_forward(const void* soft, const void* signs, void* dec,
 
 int dabjax_viterbi_traceback(const void* dec, void* bits, int B, int T,
                              int nbits, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  traceback<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint2*>(dec), static_cast<int32_t*>(bits), B, T,
-      nbits);
+  constexpr int kPerBlock = kTbCw * kTbWarps;    // codewords of a block
+  const int blocks = (B + kPerBlock - 1) / kPerBlock;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint2* d = static_cast<const uint2*>(dec);
+  int32_t* b = static_cast<int32_t*>(bits);
+  if (T % 2 == 0 && reinterpret_cast<uintptr_t>(dec) % 16 == 0)
+    traceback<true><<<blocks, 32 * kTbWarps, 0, st>>>(d, b, B, T, nbits);
+  else
+    traceback<false><<<blocks, 32 * kTbWarps, 0, st>>>(d, b, B, T, nbits);
   return static_cast<int>(cudaGetLastError());
 }
 

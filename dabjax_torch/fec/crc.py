@@ -7,7 +7,8 @@
   g(x)=(x^11+1)(x^5+x^3+x^2+x+1)  (``firecode-checker.cpp:33-94``).
 * :func:`check_crc16_bits` — the batched CRC16 gate over bit tensors on
   the device (torch port of the device branch of dabjax's
-  ``check_crc16_bits``).
+  ``check_crc16_bits``), or over numpy arrays on the host (its numpy
+  branch); :func:`check_crc16_inverted_bits` is its FIB-style form.
 
 CUDA torch has no int32 matmul, so the gate's GF(2) product runs as a float32
 matmul of 0/1 values and is reduced mod 2 afterwards.  It is exact: every
@@ -24,8 +25,8 @@ import numpy as np
 import torch
 
 __all__ = ["crc16_ccitt", "crc16_ccitt_batch", "crc16_append_bits",
-           "check_crc16_bits", "firecode_check", "firecode_parity",
-           "crc16_update_table"]
+           "check_crc16_bits", "check_crc16_inverted_bits", "firecode_check",
+           "firecode_parity", "crc16_update_table"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -269,10 +270,19 @@ def _tables(nbits: int, device: torch.device):
             torch.as_tensor(init_crc, device=device).to(torch.int32))
 
 
-def check_crc16_bits(bits: torch.Tensor, inverted: bool = True
-                     ) -> torch.Tensor:
-    """``bits`` (..., n) 0/1, the last 16 the stored CRC -> bool (...,)."""
+def check_crc16_bits(bits, inverted: bool = True):
+    """``bits`` (..., n) 0/1, the last 16 the stored CRC -> bool (...,):
+    a tensor for a tensor, a numpy array (any length) for a numpy
+    array."""
     n = bits.shape[-1]
+    if isinstance(bits, np.ndarray):
+        m, init_crc = _crc16_check_tables(n)
+        msg, stored = bits[..., : n - 16], bits[..., n - 16:]
+        crc = (msg.astype(np.uint8) @ m) & 1
+        crc = crc ^ init_crc
+        if inverted:
+            crc = crc ^ 1
+        return np.all(crc == stored, axis=-1)
     if n > 16 + (1 << 11):
         raise ValueError(f"{n}-bit message exceeds the exact matmul range")
     m, init_crc = _tables(n, bits.device)
@@ -282,3 +292,8 @@ def check_crc16_bits(bits: torch.Tensor, inverted: bool = True
     if inverted:
         crc = crc ^ 1
     return torch.all(crc == stored.to(torch.int32), dim=-1)
+
+
+def check_crc16_inverted_bits(bits):
+    """FIB-style CRC gate (CRC stored inverted), batched over leading axes."""
+    return check_crc16_bits(bits, inverted=True)

@@ -34,6 +34,7 @@ from dabjax_torch.constants import CIF_BITS, DabParams, get_mode
 from dabjax_torch.data.pad import PadHandler
 from dabjax_torch.data.packet import PacketService
 from dabjax_torch.fic.fib import EnsembleDB
+from dabjax_torch.runtime.audio_pool import COUNTER_FIELDS
 from dabjax_torch.runtime.config import ReceiverConfig
 from dabjax_torch.runtime.metrics import Metrics
 from dabjax_torch.runtime.profiling import StageProfiler
@@ -70,7 +71,11 @@ def _per_subch_path(path: Optional[str], subch_id: int) -> Optional[str]:
 
 
 class AudioService:
-    """Per-service audio chain: logical frames -> PCM / AUs (+ PAD)."""
+    """Per-service audio chain: logical frames -> PCM / AUs (+ PAD).
+
+    ``metrics`` holds this service's own counters (AUs, superframes, RS
+    corrections, MP2 frames): the receiver sums them over its services,
+    as it sums the worker pool's per service."""
 
     def __init__(self, subch_id: int, bitrate: int, is_dab_plus: bool,
                  metrics: Metrics, es_dump_path=None, pcm_dump_path=None):
@@ -674,6 +679,10 @@ class Receiver:
         for f in self._audio_futs:
             f.result()                   # surfaces worker exceptions too
         self._audio_futs.clear()
+        if self.audio:                   # the sum over in-process services
+            for f in COUNTER_FIELDS:
+                setattr(self.metrics, f, sum(getattr(svc.metrics, f)
+                                             for svc in self.audio.values()))
 
     def _pool(self):
         if self._proc_pool is None and self.cfg.audio_workers > 0:
@@ -685,7 +694,6 @@ class Receiver:
     def merge_pool_counters(self, counters: Dict) -> None:
         """Fold worker-process audio counters (cumulative per key) for
         this receiver's channel into Metrics."""
-        from dabjax_torch.runtime.audio_pool import COUNTER_FIELDS
         mine = {k: v for k, v in counters.items()
                 if k[0] == self._chan_tag}
         if not mine:
@@ -730,7 +738,7 @@ class Receiver:
         meta = self._audio_meta(subch_id)
         if meta is not None and self.cfg.decode_audio:
             self.audio[subch_id] = AudioService(
-                subch_id, meta.bitrate, meta.is_dab_plus, self.metrics,
+                subch_id, meta.bitrate, meta.is_dab_plus, Metrics(),
                 es_dump_path=self.cfg.dump_es_path,
                 pcm_dump_path=self.cfg.dump_audio_path)
             self._submit_audio_rows(self.audio[subch_id], rows)

@@ -20,11 +20,13 @@ product:
 
 :func:`dot_steps_cuda` and :func:`dot_batched_cuda` run the kernels
 (``csrc/dots.cu``: f32 on the CUDA cores as FFMA, bf16 on the tensor
-cores through ``mma.sync`` with f32 accumulation); :func:`dot_steps_torch`
-and :func:`dot_batched_torch` are their plain versions.  Inputs are the
-TPU probe's: ``default_rng(0)``, S then X, standard normal (float32, then
-the dtype).  :func:`sass_counts` counts the FFMA / HMMA instructions of
-each step in the built library.
+cores with f32 accumulation, through ``mma.sync`` in the step loop and
+``wgmma`` fed and drained by TMA in the batched product);
+:func:`dot_steps_torch` and :func:`dot_batched_torch` are their plain
+versions.  Inputs are the TPU probe's: ``default_rng(0)``, S then X,
+standard normal (float32, then the dtype).  :func:`sass_counts` counts
+the FFMA / HMMA instructions of each step, and the HGMMA of one tile of
+the batched bf16 product, in the built library.
 
 ``main()`` prints, for LB 4480 and 512, the TPU probe's cases: us per
 step from the slope between two step counts (8 and 32 at LB 4480, 32 and
@@ -78,14 +80,17 @@ BATCHED_CASES = (("batched dot f32", "float32"),
                  ("batched dot bf16", "bfloat16"))
 #: launches of the step-loop kernel since the last reset
 LAUNCHES = 0
-#: launches of the batched-product kernel since the last reset
+#: launches of the batched-product kernels since the last reset: f32
+#: (D3) and bf16 (D4)
 BATCHED_LAUNCHES = 0
+BATCHED_BF16_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES, BATCHED_LAUNCHES
+    global LAUNCHES, BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
     LAUNCHES = 0
     BATCHED_LAUNCHES = 0
+    BATCHED_BF16_LAUNCHES = 0
 
 
 def steps_for(lb: int) -> tuple[int, int]:
@@ -198,7 +203,7 @@ def dot_steps_torch(s: torch.Tensor, x: torch.Tensor,
 def dot_batched_cuda(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The kernel: S [256, K] @ X [K, N] -> float32 [256, N] (f32 K 8 or
     16, bf16 K 16; N a multiple of 8)."""
-    global BATCHED_LAUNCHES
+    global BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
     dtype = _dtype(s, x, "dot_batched_cuda")
     if s.dim() != 2 or s.shape[0] != ROWS or x.dim() != 2 \
             or x.shape[0] != s.shape[1]:
@@ -213,6 +218,9 @@ def dot_batched_cuda(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dot_batched_cuda: built for N a multiple of 8, "
                          f"f32 K 8 or 16, bf16 K 16; got N {n}, K {k}, "
                          f"{dtype}")
+    if dtype == "bfloat16" and x.data_ptr() % 16:
+        raise ValueError("dot_batched_cuda: bf16 X must be 16-byte aligned "
+                         "(its TMA tensor map)")
     out = torch.empty((ROWS, n), dtype=torch.float32, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
@@ -220,7 +228,10 @@ def dot_batched_cuda(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         rc = lib.dabjax_probe_dot_batched(
             s.data_ptr(), x.data_ptr(), out.data_ptr(),
             list(DTYPES).index(dtype), k, n, stream)
-        BATCHED_LAUNCHES += 1
+        if dtype == "float32":
+            BATCHED_LAUNCHES += 1
+        else:
+            BATCHED_BF16_LAUNCHES += 1
     viterbi_cuda._check(rc, "dot_batched_cuda")
     return out
 
@@ -298,8 +309,11 @@ def probe2(name: str, k: int, lb: int, mode: str = "dot",
 def sass_counts() -> dict:
     """{case: instructions of one step} in the built library: FFMA and
     FMUL of the f32 step kernel per mode and K (FADD for repeat_add), HMMA
-    of the bf16 one.  The step loop is not unrolled, so a kernel's count
-    is one step's (0 would mean the step's work was folded away)."""
+    of the bf16 one; and "batched bf16 K=16": the HGMMA (wgmma) of the
+    batched bf16 product, one a 64-row slab of a tile.  The step and tile
+    loops are not unrolled, so a kernel's count is one step's or one
+    tile's (0 would mean the work was folded away, or that the batched
+    product does not run on wgmma)."""
     f32 = vpu_probe._sass_lengths(r"dot_steps_f32ILi(\d+)ELi(\d+)E",
                                   ops=("FFMA", "FMUL"))
     adds = vpu_probe._sass_lengths(r"dot_steps_f32ILi(\d+)ELi(\d+)E",
@@ -309,6 +323,8 @@ def sass_counts() -> dict:
            for mode in ("dot", "dot_acs") for k in KS}
     out["repeat_add f32"] = adds.get((MODES.index("repeat_add"), 1), 0)
     out["dot bf16 K=16"] = hmma.get((), 0)
+    hgmma = vpu_probe._sass_lengths(r"dot_batched_bf16E", ops=("HGMMA",))
+    out["batched bf16 K=16"] = hgmma.get((), 0)
     return out
 
 

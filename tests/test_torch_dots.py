@@ -205,6 +205,9 @@ _SASS = """
         /*0020*/                   FADD R3, R1, R2 ;                        /* 0x0000000000007221 */
 \t\tFunction : _ZN12_GLOBAL__N_114dot_steps_bf16EPKtS1_Pfii
         /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;    /* 0x0000000000007223 */
+\t\tFunction : _ZN12_GLOBAL__N_116dot_batched_bf16E14CUtensorMap_stS0_PKtix
+        /*0000*/                   HGMMA.64x64x16.F32.BF16 R24, R4, gdesc[UR4], RZ, !UPT ;  /* 0x0000000000007223 */
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R56, R8, gdesc[UR4], RZ, !UPT ;  /* 0x0000000000007223 */
 \t\tFunction : _ZN12_GLOBAL__N_110dots_chainILi32ELi8EEEvPKfS2_Pfii
         /*0000*/                   FFMA R0, R1, R2, R0 ;                    /* 0x0000000000007223 */
         /*0010*/                   FFMA R0, R1, R2, R0 ;                    /* 0x0000000000007223 */
@@ -220,6 +223,7 @@ def test_sass_counts_read_cuobjdump(monkeypatch):
     counts = vd.sass_counts()
     assert counts["dot f32 K=16"] == 2 and counts["dot bf16 K=16"] == 1
     assert counts["dot_acs f32 K=16"] == 0
+    assert counts["batched bf16 K=16"] == 2
     assert vpu_probe2.dot_sass_counts()["uv [32,8]"] == 3 / 8
 
 

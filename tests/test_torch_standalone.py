@@ -87,7 +87,8 @@ for workers in (0, 1):
     finally:
         rx.close()
     counts.append((m.fic_ratio, m.au_ok, m.au_bad, m.mp2_frames_ok,
-                   m.mp2_frames_bad))
+                   m.mp2_frames_bad, m.superframes_ok, m.superframes_bad,
+                   m.rs_corrected))
 assert counts[0] == counts[1], counts
 assert counts[0][0] == 1.0 and counts[0][1] > 0 and counts[0][3] > 0, counts
 loaded = [k for k in sys.modules if k.split(".")[0] in ("jax", "dabjax")
@@ -198,14 +199,30 @@ def test_receiver_ensemble_db_matches(both):
     assert db_t.data_for_data_service("DATASVC").subch_id == 9
 
 
+def _service_sums(rx):
+    """dabjax's per-service decoder counters summed over its services
+    (dabjax's own ``Metrics`` keeps only the last service's: the port
+    sums them, ROADMAP Q3)."""
+    plus = [a.superframe for a in rx.audio.values() if a.superframe]
+    mp2 = [a.mp2 for a in rx.audio.values() if a.mp2]
+    return {"superframes_ok": sum(d.superframes_ok for d in plus),
+            "superframes_bad": sum(d.superframe_errors for d in plus),
+            "rs_corrected": sum(d.rs_corrected for d in plus),
+            "mp2_frames_ok": sum(d.frames_ok for d in mp2),
+            "mp2_frames_bad": sum(d.frames_bad for d in mp2)}
+
+
 def test_receiver_counters_and_pcm_match(both):
     rt, rj = both["rt"], both["rj"]
     mt, mj = rt.metrics, rj.metrics
     fields = ("synced", "fic_crc_ok", "fic_crc_bad", "au_ok", "au_bad",
-              "superframes_ok", "superframes_bad", "rs_corrected",
-              "mp2_frames_ok", "mp2_frames_bad", "frames")
+              "frames")
     assert ({f: getattr(mt, f) for f in fields}
             == {f: getattr(mj, f) for f in fields})
+    sums = _service_sums(rj)
+    assert {f: getattr(mt, f) for f in sums} == sums
+    assert sums["superframes_ok"] > max(
+        a.superframe.superframes_ok for a in rj.audio.values() if a.superframe)
     assert mt.fic_ratio == 1.0 and mt.au_ok > 0 and mt.mp2_frames_ok > 0
     assert sorted(rt.audio) == sorted(rj.audio) == [1, 2, 3]
     for subch in rt.audio:
