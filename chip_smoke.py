@@ -8,13 +8,19 @@ non-zero exit at the first failure:
 
 1. the card (nvidia-smi name and power limit) and the kernel build;
 2. kernels: the CUDA forward ACS (K1) and traceback (K2) on coded+noise,
-   near-tie and pure-noise integer soft bits at nbits 100, 101, 768, 2304
-   and 9216 and batches of 1, 31, 33, 384 and 4428 codewords: K2 against
-   its plain torch version on K1's decisions, K1 + K2 against the numpy
-   reference decoder, all bit-exact; then at the main-path shapes (MSC:
-   4428 codewords of 2304 bits; FIC: 384 of 768) K1 and K2 against their
-   plain versions, each timed with CUDA events beside it (K2: the median
-   and spread of 5 runs);
+   near-tie, pure-noise and saturated (a codeword all +127 or all -127)
+   integer soft bits at nbits 100, 101, 768, 2304 and 9216 and batches of
+   1, 3, 4, 5, 31, 33, 384 and 4428 codewords: K1 against its plain torch
+   version (int32 metrics) decision for decision, K2 against its plain
+   version on K1's decisions, K1 + K2 against the numpy reference decoder
+   (every batch up to 5 codewords, and the others of 1, 31, 33, 384 and
+   4428 but 4428 x 9216 and the saturated ones), all bit-exact; the
+   shuffles a step in K1's SASS (fewer than the first K1's 5); then at
+   the main-path shapes (MSC: 4428 codewords of 2304 bits; FIC: 384 of
+   768) K1 and K2 against their plain versions, each timed with CUDA
+   events beside it (the median and spread of 5 runs), and the run fails
+   if K1 takes more than 0.25 ms or K2 more than 0.060 ms at the MSC
+   shape;
 3. word kernels: the radix-4 word forward (K3) in the formats i8mxu, i8
    and f32 against its plain torch version (words equal element for
    element) and K3 + the word traceback (K4) against the numpy decoder,
@@ -25,7 +31,10 @@ non-zero exit at the first failure:
 4. pipeline: the 12 x 96 kbit/s EEP-A ensemble (Mode I, 96 frames, clean
    golden IQ) through ``full_ensemble_pipeline``: every FIB CRC passes and
    every subchannel's logical frames equal the transmitted payload; K1's
-   and K2's launches in one batch;
+   and K2's launches in one batch (2 and 2), what the batch clips and
+   casts to int8 (the CIF block and the FIC stream, not the MSC
+   codewords' full-rate stream), and its time (the median of 10 runs;
+   the run fails if the least of them is above 3.75 ms);
 5. receiver: ``Receiver.run()`` over a mixed MP2/DAB+ ensemble (u8 upload
    path, 64-frame blocks, audio decode on), then the same blocks with the
    audio decoded in one spawned worker process (``audio_workers=1``: the
@@ -35,7 +44,8 @@ non-zero exit at the first failure:
    (K3 + K4 in place of K1 + K2), payload-exact;
 7. stages: ``pipeline_stages`` on the phase-4 ensemble under i8lane and
    i8mxu, device ms of each prefix and of each stage, the median and
-   spread of 5 rounds;
+   spread of 5 rounds, and of the prefixes' own sum over the full-rate
+   stream;
 8. entry points: ``python -m dabjax_torch info`` and ``scan`` in-process
    on a rendered ``.raw`` file, and a 3-channel ``MultiReceiver`` bank
    with one device-to-host copy per block period;
@@ -162,6 +172,41 @@ def _k2_batches(B: int, nbits: int, rng):
 #: either side of it, the FIC and MSC batches) and lengths (odd, DAB's)
 K2_BATCHES = (1, 31, 33, 384, 4428)
 K2_NBITS = (100, 101, 768, 2304, 9216)
+#: K1's card checks: K2's batches and a block's worth of codewords and one
+#: either side of it; every batch also with saturated soft values
+K1_BATCHES = (1, 3, 4, 5, 31, 33, 384, 4428)
+#: gates of the main-path shapes, ms: K1 and K2 at the MSC shape (medians
+#: of 5 runs of 10 calls), the 96-frame batch under i8lane (the least of
+#: 10 runs of 5 batches)
+K1_GATE_MS, K2_GATE_MS, BATCH_GATE_MS = 0.25, 0.060, 3.75
+#: the numpy reference decodes batches up to this many bits
+NUMPY_LIMIT = 4428 * 2304
+#: warp shuffles a step of the first K1 (one soft broadcast, four metrics)
+K1_OLD_SHUFFLES = 5
+
+
+def _saturated(B: int, nbits: int, rng):
+    """soft [B, 4*(nbits+6)]: every value of a codeword +127, or -127."""
+    import numpy as np
+    sign = rng.choice(np.array([-127.0, 127.0], np.float32), (B, 1))
+    return np.broadcast_to(sign, (B, 4 * (nbits + 6))).copy()
+
+
+def _k1_mismatches(dec, soft8) -> int:
+    """Decisions of K1 (``dec``, its words) that differ from the plain
+    forward's on ``soft8`` int8 [B, T, 4]; some codewords at a time, so
+    that the unpacked planes stay small."""
+    from dabjax_torch.fec import viterbi, viterbi_cuda as vc
+    B, T, _ = soft8.shape
+    step = max(1, 10_000_000 // T)
+    return sum(int((vc.unpack_decisions(dec[i: i + step])
+                    != viterbi.viterbi_forward_torch(soft8[i: i + step]))
+                   .sum()) for i in range(0, B, step))
+
+
+def _runs_ms(fn, runs: int = 5, reps: int = 10) -> list:
+    """Sorted ms of ``runs`` runs of ``reps`` calls of ``fn``."""
+    return sorted(_cuda_ms(fn, reps) for _ in range(runs))
 
 
 def phase_kernels(dev, report):
@@ -172,58 +217,88 @@ def phase_kernels(dev, report):
 
     rng = np.random.default_rng(2024)
     for nbits in K2_NBITS:
-        for B in K2_BATCHES:
-            for name, soft in _k2_batches(B, nbits, rng):
-                want = viterbi_decode_np(soft, nbits)
+        t0 = time.perf_counter()
+        for B in K1_BATCHES:
+            cases = _k2_batches(B, nbits, rng)
+            cases.append(("saturated", _saturated(B, nbits, rng)))
+            for name, soft in cases:
                 s = torch.from_numpy(soft).to(dev)
-                dec = vc.viterbi_forward_cuda(vc.step_soft(s, nbits))
+                s8 = vc.step_soft(s, nbits)
+                dec = vc.viterbi_forward_cuda(s8)
+                _check(_k1_mismatches(dec, s8) == 0,
+                       f"K1 != plain at B={B} nbits={nbits} ({name})")
                 got = vc.viterbi_traceback_cuda(dec, nbits)
                 plain = viterbi.viterbi_traceback_torch(
                     vc.unpack_decisions(dec), nbits)
                 _check(torch.equal(got, plain),
                        f"K2 != plain at B={B} nbits={nbits} ({name})")
+                del dec, plain
+                # the numpy decoder: on K2's grid (but for the largest
+                # batch at the longest codeword, minutes of numpy, which
+                # the plain versions above and 384 x 9216 and 4428 x 2304
+                # cover) and on every batch up to 5 codewords
+                k2_grid = (name != "saturated" and B in K2_BATCHES
+                           and B * nbits <= NUMPY_LIMIT)
+                if not (k2_grid or B <= 5):
+                    continue
+                want = viterbi_decode_np(soft, nbits)
                 _check(np.array_equal(got.cpu().numpy(), want),
                        f"K1+K2 != numpy at B={B} nbits={nbits} ({name})")
+                if not k2_grid:
+                    continue
                 _check(torch.equal(viterbi.viterbi_decode(s, nbits), got),
                        f"viterbi_decode != K1+K2 at B={B} nbits={nbits}")
                 if B <= 33:
                     _check(np.array_equal(viterbi.viterbi_decode_torch(
                         s, nbits).cpu().numpy(), want),
                         f"plain decode != numpy at B={B} nbits={nbits}")
-                del dec, plain
-        print(f"kernels: nbits={nbits} B={K2_BATCHES} coded/near_tie/"
-              "pure_noise: K2 bit-exact vs plain torch, K1+K2 vs numpy")
+        print(f"kernels: nbits={nbits} B={K1_BATCHES} coded/near_tie/"
+              "pure_noise/saturated: K1 and K2 bit-exact vs plain torch, "
+              f"K1+K2 vs numpy ({time.perf_counter() - t0:.0f} s)")
+
+    sass = vc.forward_sass_counts()
+    per_step = sass["SHFL"] / vc.TILE
+    print(f"kernels: K1 SASS: {sass['total']} instructions, of them "
+          f"{sass['SHFL']} SHFL and {sass['VOTE']} VOTE with {vc.TILE} "
+          f"steps unrolled: {per_step:.2f} shuffles a step (the first K1: "
+          f"{K1_OLD_SHUFFLES})")
+    _check(0 < per_step < K1_OLD_SHUFFLES, f"K1 SASS shuffles: {sass}")
+    report["k1_sass"] = dict(sass, shuffles_per_step=per_step)
 
     for label, B, nbits in (("msc", 4428, 2304), ("fic", 384, 768)):
         T = nbits + 6
         soft = torch.from_numpy(rng.integers(-127, 128, (B, T, 4)).astype(
             np.int8)).to(dev)
         dec = vc.viterbi_forward_cuda(soft)
-        dec_plain = viterbi.viterbi_forward_torch(soft)
-        err_k1 = int((vc.unpack_decisions(dec) != dec_plain).sum())
+        err_k1 = _k1_mismatches(dec, soft)
         bits = vc.viterbi_traceback_cuda(dec, nbits)
-        bits_plain = viterbi.viterbi_traceback_torch(
-            vc.unpack_decisions(dec), nbits)
+        unpacked = vc.unpack_decisions(dec)
+        bits_plain = viterbi.viterbi_traceback_torch(unpacked, nbits)
         err_k2 = int((bits - bits_plain).abs().max())
         _check(err_k1 == 0, f"K1 decisions differ at {label} shape")
         _check(err_k2 == 0, f"K2 bits differ at {label} shape")
-        k1_ms = _cuda_ms(lambda: vc.viterbi_forward_cuda(soft), 10)
+        # 5 runs of 10 calls each, the median and the spread
+        k1_runs = _runs_ms(lambda: vc.viterbi_forward_cuda(soft))
+        k1_ms = k1_runs[2]
         k1_plain = _cuda_ms(lambda: viterbi.viterbi_forward_torch(soft), 1)
-        unpacked = vc.unpack_decisions(dec)
-        # K2: 5 runs of 10 calls each, the median and the spread
-        k2_runs = sorted(_cuda_ms(
-            lambda: vc.viterbi_traceback_cuda(dec, nbits), 10)
-            for _ in range(5))
+        k2_runs = _runs_ms(lambda: vc.viterbi_traceback_cuda(dec, nbits))
         k2_ms = k2_runs[2]
         k2_plain = _cuda_ms(
             lambda: viterbi.viterbi_traceback_torch(unpacked, nbits), 1)
         print(f"kernels: {label} B={B} nbits={nbits}: K1 {k1_ms:.4f} ms "
-              f"(plain {k1_plain:.2f} ms), K2 {k2_ms:.4f} ms (min "
+              f"(min {k1_runs[0]:.4f}, max {k1_runs[-1]:.4f}; plain "
+              f"{k1_plain:.2f} ms), K2 {k2_ms:.4f} ms (min "
               f"{k2_runs[0]:.4f}, max {k2_runs[-1]:.4f}; plain "
               f"{k2_plain:.2f} ms), bit-exact")
         report[label] = dict(k1=(err_k1, k1_ms, k1_plain),
                              k2=(err_k2, k2_ms, k2_plain),
-                             k2_runs_ms=k2_runs)
+                             k1_runs_ms=k1_runs, k2_runs_ms=k2_runs)
+    _check(report["msc"]["k1"][1] <= K1_GATE_MS,
+           f"K1 at the MSC shape: {report['msc']['k1'][1]:.4f} ms, above "
+           f"{K1_GATE_MS}")
+    _check(report["msc"]["k2"][1] <= K2_GATE_MS,
+           f"K2 at the MSC shape: {report['msc']['k2'][1]:.4f} ms, above "
+           f"{K2_GATE_MS}")
 
 
 def phase_words(dev, report):
@@ -358,18 +433,51 @@ def phase_pipeline(dev, report):
     pipe = full_ensemble_pipeline(p, geoms, device=dev)
     n_fib, n_lf = _check_ensemble(*pipe(rows), golden)
     # the kernels' launches in one batch (counts read as differences: the
-    # main path's counts run on)
+    # main path's counts run on), and what that batch clips and casts to
+    # int8: the CIF block and the FIC stream, never the MSC codewords'
+    # full-rate stream (an int8 tensor passes through ``to_int8``)
     before = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES)
-    pipe(rows)
+    casts, to_int8 = [], vc.to_int8
+
+    def recording(soft):
+        casts.append((str(soft.dtype).replace("torch.", ""), soft.numel()))
+        return to_int8(soft)
+
+    vc.to_int8 = recording
+    try:
+        pipe(rows)
+    finally:
+        vc.to_int8 = to_int8
     per_batch = dict(k1=vc.FORWARD_LAUNCHES - before[0],
                      k2=vc.TRACEBACK_LAUNCHES - before[1])
-    sec = _cuda_ms(lambda: pipe(rows), 5) / 1e3
+    _check(per_batch == dict(k1=2, k2=2),
+           f"launches per batch {per_batch}, not 2 and 2")
+    full_rate = len(geoms) * n_lf * 4 * (2304 + 6)
+    cif_block = n_frames * p.cifs_per_frame * 55296
+    cast = sorted(n for dtype, n in casts if dtype != "int8")
+    _check(cif_block in cast and max(cast) < full_rate,
+           f"a batch casts {casts}: the CIF block is {cif_block} values, "
+           f"the full-rate stream {full_rate}")
+    # 10 runs of 5 batches each, the median and the spread.  The gate
+    # is on the least of them: the device bounds a run's time from below,
+    # and a loaded host (the batch is a few hundred small PyTorch calls)
+    # only adds to it.
+    runs = _runs_ms(lambda: pipe(rows), runs=10, reps=5)
+    sec = (runs[4] + runs[5]) / 2e3
     rt = n_frames * p.T_F / FS / sec
     print(f"pipeline: 12 subchannels x {n_lf} logical frames exact, "
           f"{n_fib} FIBs pass CRC; {sec:.4f} s per {n_frames}-frame "
-          f"batch = {rt:.2f}x realtime; launches per batch {per_batch}")
+          f"batch (min {runs[0]:.4f}, max {runs[-1]:.4f} ms) = {rt:.2f}x "
+          f"realtime; launches per batch {per_batch}")
+    print(f"pipeline: int8 casts of one batch (dtype in, values): {casts}; "
+          f"no clip or cast touches the {full_rate} values of the "
+          "full-rate MSC stream")
+    _check(runs[0] <= BATCH_GATE_MS,
+           f"the batch takes {runs[0]:.4f} ms at the least, above "
+           f"{BATCH_GATE_MS}")
     report["pipeline"] = dict(seconds_per_batch=sec, realtime=rt,
-                              launches_per_batch=per_batch)
+                              launches_per_batch=per_batch,
+                              int8_casts=casts, batch_runs_ms=runs)
     return golden
 
 
@@ -496,6 +604,7 @@ STAGE_ROUNDS = 5
 def phase_stages(dev, report, golden):
     import math
     import statistics
+    import torch
     from dabjax_torch.fec import viterbi_cuda as vc
     from dabjax_torch.runtime.pipeline import pipeline_stages
 
@@ -531,8 +640,26 @@ def phase_stages(dev, report, golden):
             print(f"stages ({fmt}): stage ms, median (min-max) " +
                   ", ".join(f"{k} {v:.4f} ({spread[k][0]:.4f}-"
                             f"{spread[k][1]:.4f})" for k, v in stages.items()))
+            # what the prefixes' own sum over the full-rate stream costs
+            # (the full pipeline forms no such sum): it sits in the
+            # deint_depunct stage and is missing from the last one.  The
+            # stream is int8 under the int8 formats, float32 before the
+            # cast moved in front of the gathers.
+            n_lf = golden["n_frames"] * p.cifs_per_frame - 15
+            shape = (len(golden["geoms"]), n_lf, 4 * (2304 + 6))
+            sums = {}
+            for dtype in (torch.int8, torch.float32):
+                stream = torch.zeros(shape, device=dev, dtype=dtype)
+                sums[str(dtype).replace("torch.", "")] = _cuda_ms(
+                    lambda: stream.sum(), 10)
+                del stream
+            print(f"stages ({fmt}): the prefixes' sum over the full-rate "
+                  f"stream (int8) takes {sums['int8']:.4f} ms of "
+                  f"deint_depunct ({sums['float32']:.4f} ms for a float32 "
+                  "stream), and traceback_dispersal = full - "
+                  "viterbi_forward lacks it and the other sums")
             out[fmt] = dict(prefix_ms=ms, stage_ms=stages,
-                            stage_spread_ms=spread)
+                            stage_spread_ms=spread, stream_sum_ms=sums)
     finally:
         vc.SOFT_FMT = "i8lane"
     report["stages"] = out
@@ -1163,7 +1290,8 @@ def _kernel_lines(report, launches):
     return [
         line("viterbi_forward_acs", src, "dabjax/fec/viterbi_pallas.py:85",
              launches["k1"], err["k1"], msc["k1"][1], msc["k1"][2], None,
-             _bound(B * T * 4 + B * T * 8, B * T * acs2, "lane_op")),
+             _bound(B * T * 4 + B * T * 8, B * T * acs2, "lane_op"),
+             runs_ms=msc["k1_runs_ms"], sass=report["k1_sass"]),
         line("viterbi_traceback", src, "dabjax/fec/viterbi_pallas.py:218",
              launches["k2"], err["k2"], msc["k2"][1], msc["k2"][2], None,
              _bound(B * T * 4 + B * nbits * 4, B * T * 3, "lane_op"),
@@ -1284,27 +1412,35 @@ def main() -> int:
           f"(nvcc {_build.build_seconds:.2f} s)")
 
     report = {}
-    phase_kernels(dev, report)
-    phase_words(dev, report)
+
+    def timed(phase, *args):
+        """Run a phase and print the seconds it took."""
+        t = time.perf_counter()
+        out = phase(dev, report, *args)
+        print(f"seconds: {phase.__name__} {time.perf_counter() - t:.1f}")
+        return out
+
+    timed(phase_kernels)
+    timed(phase_words)
     vc.reset_launches()
-    golden = phase_pipeline(dev, report)
-    loop_iq = phase_receiver(dev, report)
+    golden = timed(phase_pipeline)
+    loop_iq = timed(phase_receiver)
     torch.cuda.synchronize()
     launches = {"k1": vc.FORWARD_LAUNCHES, "k2": vc.TRACEBACK_LAUNCHES}
     _check(all(n > 0 for n in launches.values()),
            f"main path did not launch every kernel: {launches}")
     vc.reset_launches()
-    phase_formats(dev, report, golden)
+    timed(phase_formats, golden)
     torch.cuda.synchronize()
     launches.update(k3=vc.WORDS_FORWARD_LAUNCHES,
                     k4=vc.WORDS_TRACEBACK_LAUNCHES)
     _check(launches["k3"] > 0 and launches["k4"] > 0,
            f"the word-format path did not launch K3/K4: {launches}")
     print(f"launches on the main path: {launches}")
-    phase_stages(dev, report, golden)
-    phase_entry(dev, report, loop_iq)
-    phase_trace(dev, report, golden)
-    phase_probes(dev, report)
+    timed(phase_stages, golden)
+    timed(phase_entry, loop_iq)
+    timed(phase_trace, golden)
+    timed(phase_probes)
 
     kernels = _kernel_lines(report, launches)
     print(json.dumps({"kernels": kernels, "card": card,

@@ -317,15 +317,24 @@ void launch_plane_k(int K, int chunk, bool unroll, int blocks,
 // shape of the Viterbi soft input).
 //
 // What bounds it on the card: device-memory bandwidth, 8 bytes moved per
-// float and one multiply.  Design: 16-byte loads and stores, neighbouring
-// threads on neighbouring float4s; each block of 256 threads owns one
-// contiguous 16 KB chunk (kCopyUnroll float4s a thread, all loaded before
-// any is stored), and the grid has a block per chunk (20,300 at the
-// probe's shape, about 150 a SM), so every SM keeps loads in flight to
-// the end.  Measured at the probe's shape on an NVIDIA H100 80GB HBM3 at
-// 700 W: 2.95 TB/s, the rate of torch's own product, where a persistent
-// grid of 8 blocks a SM striding over the whole array reached 2.76.
-constexpr int kCopyUnroll = 4;
+// float and one multiply; nothing is read twice and nothing reads the
+// output back, so every line a cache keeps is a line wasted.  Design: one
+// float4 a thread and nothing else (no loop, no second load in flight in
+// the thread: with 20,300 warps' worth of blocks queued, the parallelism
+// that hides the memory latency comes from the 2048 resident threads an
+// SM, as in the launch shape of torch's own product), neighbouring threads
+// on neighbouring float4s; the load is ld.global.nc with
+// L1::no_allocate and the store st.global.cs (streaming, evicted first).
+// Measured at the probe's shape on an NVIDIA H100 80GB HBM3 at 700 W,
+// on a fixed output buffer: 0.2230 ms a call against 0.2243 for torch.mul
+// and 0.2267 for the earlier design (4 float4s a thread, plain loads and
+// stores, 16 KB a block), medians of 7 runs in turns; through the Python
+// wrapper, which allocates its output as torch.mul does, the two are
+// within 1 % of each other.  Tried and slower: L2 evict-first
+// cache-hint policies on either side (0.2251-0.2260), 2 to 8 float4s a
+// thread (0.2238-0.2317), and a bulk-copy pipeline (cp.async.bulk into
+// shared memory, the product there, cp.async.bulk out with an evict-first
+// hint; 2 to 8 stages of 8 to 32 KB, 1 to 4 blocks an SM: 0.2350-0.2489).
 constexpr int kCopyThreads = 256;
 
 __device__ __forceinline__ float4 scale(float4 v) {
@@ -336,20 +345,15 @@ __device__ __forceinline__ float4 scale(float4 v) {
 __global__ void __launch_bounds__(kCopyThreads)
 scale_copy(const float4* __restrict__ x, float4* __restrict__ o,
            size_t n4) {
-  const size_t base =
-      static_cast<size_t>(blockIdx.x) * kCopyThreads * kCopyUnroll +
-      threadIdx.x;
-  float4 v[kCopyUnroll];
-#pragma unroll
-  for (int k = 0; k < kCopyUnroll; ++k) {
-    const size_t i = base + k * kCopyThreads;
-    if (i < n4) v[k] = x[i];
-  }
-#pragma unroll
-  for (int k = 0; k < kCopyUnroll; ++k) {
-    const size_t i = base + k * kCopyThreads;
-    if (i < n4) o[i] = scale(v[k]);
-  }
+  const size_t i =
+      static_cast<size_t>(blockIdx.x) * kCopyThreads + threadIdx.x;
+  if (i >= n4) return;
+  float4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(x + i));
+  __stcs(o + i, scale(v));
 }
 
 // P3: fill of a decision plane.  Replaces dec_kernel in
@@ -448,7 +452,7 @@ int dabjax_probe_forward_plane(const void* soft, const void* signs,
 // n4: float4s in x and o (both 16-byte aligned)
 int dabjax_probe_scale_copy(const void* x, void* o, long long n4,
                             void* stream) {
-  const long long per_block = kCopyThreads * kCopyUnroll;
+  const long long per_block = kCopyThreads;
   const long long blocks = (n4 + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (blocks > 0)

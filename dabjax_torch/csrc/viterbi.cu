@@ -11,10 +11,11 @@
 // branch 0; the traceback starts at state 0 after the 6 tail bits.
 //
 // Soft values are integers in [-127, 127] (the demod's rounded soft-bit
-// contract), so int8 inputs and int32 path metrics are exact: the largest
-// metric growth is 508 per step, 4.7e6 over the 9222 steps of a
+// contract), so int8 inputs and integer path metrics are exact: the
+// largest metric growth is 508 per step, 4.7e6 over the 9222 steps of a
 // 384 kbit/s subchannel, far inside int32 with the -2^29 start of the
-// states other than 0 (no renormalisation needed).
+// states other than 0 (K3: no renormalisation needed); K1 keeps 16-bit
+// metrics and renormalises once a tile (see there).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,69 +28,151 @@ namespace {
 // dabjax/fec/viterbi_pallas.py (radix-4 ACS, 16 pair steps per packed
 // decision word, batch on TPU lanes).
 //
-// What bounds it on the card: each codeword is a sequential chain of T
-// dependent steps, and each step is integer issue (4 dp4a, 4 shuffles,
-// 2 compare-selects, 2 ballots per lane) plus 8 bytes of decisions.
-// Design: one warp per codeword, so the 64 states of a step live in the
-// registers of one warp (lane l holds states l and l + 32) and the
-// predecessor exchange is 4 warp shuffles, with no shared memory and no
-// barriers.  The step's 4 int8 soft values arrive as one int32, and each
-// branch metric is one __dp4a against the register value's packed +-1
-// signs.  Soft words are read 32 steps at a time, one coalesced 128-byte
-// load per warp, and broadcast by shuffle; the 64 decisions of a step are
-// two __ballot_sync words, kept in the lane of that step and written as
-// one coalesced 256-byte store per 32 steps.  Throughput comes from
-// thousands of codewords in flight (4428 warps at the full-ensemble MSC
-// shape), not from parallelism inside the chain.
-__global__ void __launch_bounds__(128)
+// What bounds it on the card: each codeword is a chain of T dependent
+// steps, and with one warp a codeword the card is full of such chains
+// (4428 at the MSC shape, nine warps a scheduler), so the latency of a
+// step is hidden and the limit is how many instructions a step takes.
+// The first version ran 5 shuffles, 2 votes and about 20 integer
+// instructions a step on int32 metrics; with any one of those groups
+// taken out it ran no faster than 0.29 of its 0.33 ms (NVIDIA H100 80GB
+// HBM3, 700 W), so no single queue bounded it: the sum did.  This version
+// runs about 12 a step, 10 of them the ones listed below, and half of
+// those on the integer ALU pipe, which takes a warp instruction every
+// other clock: with the shuffle, the votes, the shared stores or the
+// soft loads taken out it is no faster; with the two byte permutes
+// taken out it is 9 % faster.  0.176 ms, 3.0 times the bound's 3
+// operations a state.
+// Design, per warp and codeword:
+//  * In place.  The lane that holds the metrics of states p and p + 32
+//    holds both predecessors of 2p and 2p + 1 and computes both with no
+//    shuffle.  The new pair differs from the pair the next step needs,
+//    (u, u + 32), by one exchange with the lane across one lane bit: one
+//    shuffle and two byte permutes a step.  The price is that the 5-bit
+//    lane index of a state pair rotates one bit a step (period
+//    kFwPhases); the unrolled tile knows each step's phase at compile
+//    time, one more shuffle a tile of kFwTile steps puts the lanes back,
+//    and the decisions are stored where they are made (word = state & 1,
+//    bit = the lane): K2 walks in the same rotated coordinates.
+//  * Two metrics a register.  Path metrics are unsigned 16-bit halves of
+//    one word, so the exchange moves both metrics at once, the four
+//    candidates are two 32-bit multiply-adds (the four branch metrics of
+//    a butterfly are +-b for one dp4a b, because every generator has its
+//    first and last tap set: b * 0xFFFF0001 adds (+b, -b) to the halves,
+//    b * 0x0000FFFF adds (-b, +b), exact while no half leaves
+//    0 .. 65535), and one DPX __vibmax_u16x2 gives both maxima and both
+//    decisions; its predicate is a >= c, so ties keep branch 0.  State 0
+//    starts at kLive and is put back there once a tile; live metrics lie
+//    within 12 * 508 of each other and move at most 32 * 508 a tile, so
+//    no half wraps and every difference is that of an int32 recursion.
+//    The other start states begin 8192 lower: further than the 6 * 508 a
+//    path gains before every state descends from state 0.
+//  * Decisions by vote.  The two predicates of the maximum go through
+//    two __ballot_sync a step; lane 0 puts the step's two words in shared
+//    memory, and after the tile lane j reads step j's words back and
+//    stores them: one coalesced 256-byte store a tile.  Slower, measured:
+//    one 16-byte shared store every other step (0.191 ms against 0.187,
+//    its register moves cost what the store saved); keeping the words in
+//    the lane of their step by predicated moves (0.211); gathering each
+//    lane's own decisions in two registers and transposing the two
+//    32 x 32 bit matrices by shuffle (0.229).
+//  * The soft words of a tile (one coalesced 128-byte load, started a
+//    tile ahead) go through shared memory and come back four steps at a
+//    time as one broadcast 16-byte load (0.229 ms against 0.249 with a
+//    shuffle broadcast a step, on the transposing variant).
+//  * Four warps a block, nine blocks an SM: two or three warps a block
+//    measured the same, eight slower.
+// A partial last tile runs its 32 steps on zero soft words and stores
+// only the steps below T.
+constexpr int kFwTile = 32;                   // steps of a tile
+constexpr int kFwPhases = 5;                  // period of the lane rotation
+constexpr int kFwWarps = 4;                   // warps (codewords) of a block
+constexpr unsigned kLive = 32768u;            // state 0, at every tile start
+constexpr unsigned kDead = kLive - 8192u;     // the other start states
+
+// the 5-bit lane index rotated left by k (k may be negative)
+__device__ __forceinline__ int rotl5(int x, int k) {
+  k = ((k % kFwPhases) + kFwPhases) % kFwPhases;
+  return ((x << k) | (x >> (kFwPhases - k))) & 31;
+}
+
+__global__ void __launch_bounds__(32 * kFwWarps, 9)
 forward_acs(const int32_t* __restrict__ soft,   // [B, T] packed int8x4
-            const int32_t* __restrict__ signs,  // [128] packed int8x4 +-1
+            const int32_t* __restrict__ signs,  // [32] signs of r = 2s
             uint2* __restrict__ dec,            // [B, T] decision words
             int B, int T) {
-  const int cw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  __shared__ __align__(16) int32_t xs[kFwWarps][2][kFwTile];
+  __shared__ uint2 ds[kFwWarps][kFwTile];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int cw = blockIdx.x * kFwWarps + warp;
   if (cw >= B) return;  // whole warps exit together
   const int32_t* s = soft + static_cast<size_t>(cw) * T;
   uint2* d = dec + static_cast<size_t>(cw) * T;
 
-  // branch signs of the four register values this lane scores
-  const int sg_lo0 = signs[lane];        // state lane,      branch 0
-  const int sg_lo1 = signs[lane | 64];   // state lane,      branch 1
-  const int sg_hi0 = signs[lane + 32];   // state lane + 32, branch 0
-  const int sg_hi1 = signs[lane + 96];   // state lane + 32, branch 1
-  int pm_lo = (lane == 0) ? 0 : -(1 << 29);  // metric of state lane
-  int pm_hi = -(1 << 29);                    // metric of state lane + 32
-  // predecessors: states lane >> 1 and (lane >> 1) | 32 sit in lane
-  // lane >> 1; those of state lane + 32 in lane 16 + (lane >> 1)
-  const int src_a = lane >> 1;
-  const int src_b = 16 + (lane >> 1);
+  // By phase: the signs of the lane's butterfly (it holds states u and
+  // u + 32, u = rotl5(lane, phase)), and the byte selectors that build
+  // (lo, lo) and (hi, hi) from the lane's own new pair and its partner's
+  // after a step of that phase (the lane keeps its low half when its
+  // exchanged lane bit is 0, its high half when it is 1).
+  int sg[kFwPhases];
+  unsigned sel_lo[kFwPhases], sel_hi[kFwPhases];
+#pragma unroll
+  for (int p = 0; p < kFwPhases; ++p) {
+    sg[p] = signs[rotl5(lane, p)];
+    const bool up = (lane >> (4 - p)) & 1;
+    sel_lo[p] = up ? 0x7676u : 0x1010u;
+    sel_hi[p] = up ? 0x3232u : 0x5454u;
+    // kept in registers: left to itself the compiler builds the ten
+    // selectors anew in every tile, 25 ALU instructions more
+    asm volatile("" : "+r"(sel_lo[p]), "+r"(sel_hi[p]));
+  }
+  // a tile ends in phase (kFwTile - 1) % kFwPhases and the next begins
+  // as if after phase kFwPhases - 1
+  const int back = rotl5(lane, -((kFwTile - 1) % kFwPhases + 1));
+  // new pair (2v, 2v + 1) of the lane, v = rotl5(lane, -1): state 0 is
+  // the low half of lane 0, in every phase
+  unsigned n = kDead * 0x10001u;
+  if (lane == 0) n = kLive | (kDead << 16);
 
-  for (int t0 = 0; t0 < T; t0 += 32) {
-    const int n = min(32, T - t0);
-    const int w = (lane < n) ? s[t0 + lane] : 0;
-    unsigned keep_lo = 0, keep_hi = 0;
-    for (int j = 0; j < n; ++j) {
-      const int x = __shfl_sync(kFull, w, j);
-      const int a_lo = __shfl_sync(kFull, pm_lo, src_a);
-      const int a_hi = __shfl_sync(kFull, pm_hi, src_a);
-      const int b_lo = __shfl_sync(kFull, pm_lo, src_b);
-      const int b_hi = __shfl_sync(kFull, pm_hi, src_b);
-      const int m0 = a_lo + __dp4a(x, sg_lo0, 0);
-      const int m1 = a_hi + __dp4a(x, sg_lo1, 0);
-      const int m2 = b_lo + __dp4a(x, sg_hi0, 0);
-      const int m3 = b_hi + __dp4a(x, sg_hi1, 0);
-      const bool d_lo = m1 > m0;
-      const bool d_hi = m3 > m2;
-      pm_lo = d_lo ? m1 : m0;
-      pm_hi = d_hi ? m3 : m2;
-      const unsigned bl = __ballot_sync(kFull, d_lo);
-      const unsigned bh = __ballot_sync(kFull, d_hi);
-      if (lane == j) {
-        keep_lo = bl;
-        keep_hi = bh;
-      }
+  const int tiles = (T + kFwTile - 1) / kFwTile;
+  int w = (lane < T) ? s[lane] : 0;
+  for (int k = 0; k < tiles; ++k) {
+    const int t0 = k * kFwTile;
+    int32_t* buf = xs[warp][k & 1];
+    buf[lane] = w;
+    // also: every lane has read buffer k & 1 of tile k - 2, and its
+    // decisions of tile k - 1
+    __syncwarp();
+    const int t_next = t0 + kFwTile + lane;
+    w = (t_next < T) ? s[t_next] : 0;
+    if (k) {
+      n = __shfl_sync(kFull, n, back);
+      const unsigned zero = __shfl_sync(kFull, n, 0) & 0xffffu;
+      n += (kLive - zero) * 0x10001u;
     }
-    if (lane < n) d[t0 + lane] = make_uint2(keep_lo, keep_hi);
+    int4 x4;
+#pragma unroll
+    for (int j = 0; j < kFwTile; ++j) {
+      const int phase = j % kFwPhases;
+      const int prev = (j + kFwPhases - 1) % kFwPhases;
+      if (j % 4 == 0) x4 = *reinterpret_cast<const int4*>(buf + j);
+      const int x = j % 4 == 0 ? x4.x : j % 4 == 1 ? x4.y
+                  : j % 4 == 2 ? x4.z : x4.w;
+      const unsigned other = __shfl_xor_sync(kFull, n, 16 >> prev);
+      const unsigned lo = __byte_perm(n, other, sel_lo[prev]);
+      const unsigned hi = __byte_perm(n, other, sel_hi[prev]);
+      const unsigned b = static_cast<unsigned>(__dp4a(x, sg[phase], 0));
+      const unsigned a = lo + b * 0xffff0001u;   // (lo + b, lo - b)
+      const unsigned c = hi + b * 0x0000ffffu;   // (hi - b, hi + b)
+      bool a_hi, a_lo;                           // branch 0 kept (a >= c)
+      n = __vibmax_u16x2(a, c, &a_hi, &a_lo);
+      const unsigned dec_lo = __ballot_sync(kFull, !a_lo);
+      const unsigned dec_hi = __ballot_sync(kFull, !a_hi);
+      if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);
+    }
+    __syncwarp();
+    const uint2 mine = ds[warp][lane];
+    if (t0 + lane < T) d[t0 + lane] = mine;
   }
 }
 
@@ -121,16 +204,27 @@ forward_acs(const int32_t* __restrict__ soft,   // [B, T] packed int8x4
 // the tile's 32 bits in one register; the warp transposes them by shuffle
 // (lane r's word to every lane) and writes each codeword's 32 bits as one
 // 128-byte store (aligned when nbits * 4 is a multiple of 128, as for every
-// DAB size).  The top tile, partial when T is not a multiple of 32, is
-// zero-filled past T: zero decisions keep the start state 0, so the walk
-// needs no guard.  Rows of codewords >= B are zero-filled too; bits t >=
-// nbits and codewords >= B are masked at the store.
+// DAB size).  The walk runs in K1's rotated coordinates: the state is kept
+// as (half, pos), the word and the bit of its decision; a step back
+// replaces bit q of pos by the decision and takes the old bit as the new
+// half, q being the lane bit K1 exchanged at that step (a compile-time
+// constant of the unrolled step), so the chain is as long as a shift of the
+// state would be; where a tile ends, pos is re-indexed as K1's one shuffle a
+// tile re-indexed the lanes.  The decoded bit of a step is `half`.  The
+// top tile, partial when T is not a multiple of 32, is zero-filled past T:
+// zero decisions keep the start state 0, so the walk needs no guard.  Rows
+// of codewords >= B are zero-filled too; bits t >= nbits and codewords >= B
+// are masked at the store.
 constexpr int kTbSteps = 32;                  // steps of a tile
 constexpr int kTbCw = 16;                     // codewords of a warp
 constexpr int kTbWarps = 2;                   // warps of a block
 constexpr int kTbStages = 4;                  // tiles in shared memory
 constexpr int kTbRow = kTbSteps * 8 + 16;     // bytes of a row (padded)
 constexpr int kTbTile = kTbCw * kTbRow;       // bytes of a warp's tile
+// K2 walks K1's rotated coordinates: the same tiles, and the re-indexing
+// between tiles below is a rotation by 2
+static_assert(kTbSteps == kFwTile && (kFwTile - 1) % kFwPhases + 1 == 2,
+              "K2's walk assumes K1's tile and rotation");
 
 // cp.async of kBytes, or kBytes of zeros when !valid (src-size 0; src
 // must still be a valid address)
@@ -197,7 +291,7 @@ traceback(const uint2* __restrict__ dec,  // [B, T] decision words
                        T, top - s, lane);
     cp_async_commit();                        // one group a tile, maybe empty
   }
-  int state = 0;
+  unsigned half = 0, pos = 0;                 // state 0, in every phase
   for (int k = top; k >= 0; --k) {
     const int kn = k - (kTbStages - 1);       // its buffer was read at k + 1
     if (kn >= 0)
@@ -216,10 +310,18 @@ traceback(const uint2* __restrict__ dec,  // [B, T] decision words
     unsigned mask = 0;
 #pragma unroll
     for (int j = kTbSteps - 1; j >= 0; --j) {
-      mask |= static_cast<unsigned>(state & 1) << j;
-      const unsigned word = (state & 32) ? w[j].y : w[j].x;
-      state = (state >> 1) |
-              static_cast<int>(((word >> (state & 31)) & 1u) << 5);
+      mask |= half << j;                      // the state's newest bit
+      const unsigned word = half ? w[j].y : w[j].x;
+      const unsigned dbit = (word >> pos) & 1u;
+      if (j > 0) {
+        // the lane bit K1 exchanged at step j
+        const int q = (kFwPhases - j % kFwPhases) % kFwPhases;
+        half = (pos >> q) & 1u;
+        pos = (pos & ~(1u << q)) | (dbit << q);
+      } else {                                // K1's shuffle between tiles
+        half = pos & 1u;
+        pos = (pos >> 2) | (dbit << 3) | (((pos >> 1) & 1u) << 4);
+      }
     }
     const int t = k * kTbSteps + lane;
 #pragma unroll
@@ -390,8 +492,8 @@ extern "C" {
 
 int dabjax_viterbi_forward(const void* soft, const void* signs, void* dec,
                            int B, int T, void* stream) {
-  const int threads = 128;                       // 4 codewords per block
-  const int blocks = (B + 3) / 4;
+  const int threads = 32 * kFwWarps;             // a warp a codeword
+  const int blocks = (B + kFwWarps - 1) / kFwWarps;
   forward_acs<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(soft), static_cast<const int32_t*>(signs),
       static_cast<uint2*>(dec), B, T);

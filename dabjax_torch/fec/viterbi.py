@@ -31,7 +31,8 @@ __all__ = ["viterbi_decode", "viterbi_decode_torch", "viterbi_forward_torch",
            "viterbi_traceback_torch", "viterbi_forward_words",
            "viterbi_traceback_words", "viterbi_forward_words_torch",
            "viterbi_traceback_words_torch", "viterbi_decode_np",
-           "branch_signs"]
+           "branch_signs", "viterbi_forward_lanes_torch",
+           "viterbi_traceback_lanes_torch"]
 
 #: trellis steps whose branch metrics are formed in one matmul
 _CHUNK = 64
@@ -141,6 +142,94 @@ def viterbi_traceback_torch(dec: torch.Tensor, nbits: int) -> torch.Tensor:
     return out[:, :nbits]
 
 
+_M32 = 0xFFFFFFFF
+
+
+def viterbi_forward_lanes_torch(soft: torch.Tensor) -> torch.Tensor:
+    """K1's own arithmetic, lane by lane: ``soft`` int8 [B, T, 4] ->
+    decision words int32 [B, T, 2] in K1's layout
+    (``viterbi_cuda.decision_positions``).
+
+    A model of the kernel for the tests, not a fast path: 32 lanes, each
+    holding two unsigned 16-bit path metrics packed in one 32-bit word
+    (every product and sum wraps at 32 bits as the card's does; the
+    halves are compared unsigned, ``>=`` keeping branch 0), the in-place
+    butterfly with one exchange a step, the start values
+    ``METRIC_LIVE`` / ``METRIC_DEAD``, and once a tile of ``TILE`` steps
+    the shuffle that undoes the lane rotation and the renormalisation
+    that puts state 0 back at ``METRIC_LIVE``.  Its decisions equal
+    :func:`viterbi_forward_torch`'s (int32 metrics) bit for bit as long
+    as no half leaves 0 .. 65535."""
+    vc = viterbi_cuda
+    B, T, _ = soft.shape
+    dev = soft.device
+    lane = torch.arange(32, device=dev)
+    sg = torch.as_tensor(vc.butterfly_signs().astype(np.int64), device=dev)
+    x = soft.to(torch.int64)
+    live, dead = vc.METRIC_LIVE, vc.METRIC_DEAD
+    n = torch.full((B, 32), dead * 0x10001, dtype=torch.int64, device=dev)
+    n[:, 0] = live | (dead << 16)
+    out = torch.zeros((B, T, 2), dtype=torch.int64, device=dev)
+    back = vc.rotl5(lane, -((vc.TILE - 1) % vc.PHASES + 1))
+    for t0 in range(0, T, vc.TILE):
+        if t0:
+            n = n[:, back]
+            n = (n + (live - (n[:, :1] & 0xFFFF)) * 0x10001) & _M32
+        acc = torch.zeros((2, B, 32), dtype=torch.int64, device=dev)
+        for j in range(min(vc.TILE, T - t0)):
+            phase, prev = j % vc.PHASES, (j - 1) % vc.PHASES
+            sel = ((lane >> (4 - prev)) & 1).bool()
+            other = n[:, lane ^ (16 >> prev)]
+            lo = torch.where(sel, other >> 16, n & 0xFFFF)
+            hi = torch.where(sel, n >> 16, other & 0xFFFF)
+            # [B, 32]; no matmul: the card has none for int64
+            b = (x[:, t0 + j, None] * sg[vc.rotl5(lane, phase)]).sum(-1)
+            a = (lo * 0x10001 + b * -65535) & _M32   # (lo + b, lo - b)
+            c = (hi * 0x10001 + b * 65535) & _M32    # (hi - b, hi + b)
+            halves = []
+            for h, shift in enumerate((0, 16)):
+                a_h, c_h = (a >> shift) & 0xFFFF, (c >> shift) & 0xFFFF
+                keep0 = a_h >= c_h
+                acc[h] |= (~keep0).to(torch.int64) << j
+                halves.append(torch.where(keep0, a_h, c_h) << shift)
+            n = halves[0] | halves[1]
+        # the warp's 32 x 32 bit transpose: lane j gets step j's words
+        steps = torch.arange(vc.TILE, device=dev)
+        words = (((acc[..., None] >> steps) & 1) << lane[:, None]).sum(dim=2)
+        nt = min(vc.TILE, T - t0)
+        out[:, t0: t0 + nt] = words.permute(1, 2, 0)[:, :nt]
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def viterbi_traceback_lanes_torch(dec: torch.Tensor,
+                                  nbits: int) -> torch.Tensor:
+    """K2's own walk over K1's decision words int32 [B, T, 2] -> bits
+    int32 [B, nbits]: the state is kept as (bit b, lane i) in K1's rotated
+    coordinates, so a step replaces one bit of ``i`` and one shuffle's
+    worth of re-indexing happens where a tile ends.  A model of the
+    kernel for the tests; equals :func:`viterbi_traceback_torch` on
+    ``viterbi_cuda.unpack_decisions(dec)``."""
+    vc = viterbi_cuda
+    B, T, _ = dec.shape
+    d64 = dec.to(torch.int64) & _M32
+    i = torch.zeros((B,), dtype=torch.int64, device=dec.device)
+    b = torch.zeros_like(i)
+    out = torch.empty((B, T), dtype=torch.int32, device=dec.device)
+    for t in range(T - 1, -1, -1):
+        j = t % vc.TILE
+        out[:, t] = b.to(torch.int32)
+        word = d64[:, t].gather(1, b[:, None])[:, 0]
+        d = (word >> i) & 1
+        if j:
+            q = -j % vc.PHASES
+            b = (i >> q) & 1
+            i = (i & ~(1 << q)) | (d << q)
+        else:               # into the tile before: undo K1's shuffle
+            b = i & 1
+            i = (i >> 2) | (d << 3) | (((i >> 1) & 1) << 4)
+    return out[:, :nbits]
+
+
 def viterbi_decode_torch(soft: torch.Tensor, nbits: int) -> torch.Tensor:
     """Plain torch decode: ``soft`` (..., 4*(nbits+6)) -> (..., nbits)
     int32."""
@@ -243,9 +332,9 @@ def viterbi_forward_words(soft: torch.Tensor, nbits: int):
     """Forward ACS only, in the layout of ``viterbi_cuda.SOFT_FMT``:
     ``soft`` (..., 4*(nbits+6)) -> (dec, last).
 
-    * "i8lane"/"i8lane2": ``dec`` is K1's int32 [B, T, 2] (bit s % 32 of
-      word s // 32 is state s's radix-2 decision at step t); ``last`` is
-      None.
+    * "i8lane"/"i8lane2": ``dec`` is K1's int32 [B, T, 2] (state s's
+      radix-2 decision at step t sits where
+      ``viterbi_cuda.decision_positions`` says); ``last`` is None.
     * "i8mxu"/"i8"/"f32": ``dec`` is the radix-4 words int32 [W, 64, B]
       of dabjax's ``viterbi_forward_words`` (16 pair steps per word, pair
       j at bits 2j..2j+1); ``last`` is int32 [B] (see

@@ -2,7 +2,8 @@
 
 * forward ACS (K1) replaces ``_forward_kernel_lane`` of
   ``dabjax/fec/viterbi_pallas.py``: soft int8 [B, T, 4] -> decision words
-  int32 [B, T, 2] (bit s of word s // 32 is state s's decision);
+  int32 [B, T, 2] in the kernel's own layout (:func:`decision_positions`:
+  word ``s & 1``, bit = ``s >> 1`` rotated right by ``(t % 32) % 5``);
 * traceback (K2) replaces ``_traceback_kernel`` and the unpack epilogue
   of ``viterbi_decode_pallas``: decision words -> bits int32 [B, nbits];
 * radix-4 forward ACS (K3) replaces ``_forward_kernel``: pair-step soft
@@ -37,7 +38,9 @@ from dabjax_torch.fec import conv
 __all__ = ["SOFT_FMT", "FORMATS", "WORD_FORMATS", "viterbi_forward_cuda", "viterbi_traceback_cuda",
            "viterbi_forward_words_cuda", "viterbi_traceback_words_cuda",
            "step_soft", "pair_soft", "radix4_signs", "reset_launches",
-           "soft_format", "pack_decisions", "unpack_decisions"]
+           "soft_format", "pack_decisions", "unpack_decisions",
+           "decision_positions", "to_int8", "TILE", "PHASES", "METRIC_LIVE",
+           "METRIC_DEAD", "rotl5", "forward_sass_counts"]
 
 #: the soft-input formats of dabjax's ``viterbi_pallas.SOFT_FMT``
 FORMATS = ("i8lane", "i8lane2", "i8mxu", "i8", "f32")
@@ -57,6 +60,16 @@ WORDS_FORWARD_LAUNCHES = 0
 WORDS_TRACEBACK_LAUNCHES = 0
 
 _PAIRS_PER_WORD = 16
+
+#: K1 / K2 walk the trellis in tiles of TILE steps; inside a tile the
+#: lane that holds a state rotates with period PHASES (see
+#: :func:`decision_positions`)
+TILE = 32
+PHASES = 5
+#: K1's unsigned 16-bit path metrics: state 0 starts (and is put back,
+#: once a tile) at METRIC_LIVE, the other start states at METRIC_DEAD
+METRIC_LIVE = 32768
+METRIC_DEAD = METRIC_LIVE - 8192
 
 
 def reset_launches() -> None:
@@ -93,22 +106,33 @@ def radix4_signs() -> np.ndarray:
     return S4
 
 
+def to_int8(soft: torch.Tensor) -> torch.Tensor:
+    """The int8 formats' soft values: clipped to +-127 and truncated
+    toward zero (a float -> int8 cast that saturates, where torch's own
+    wraps); an int8 tensor is returned as it is.  Elementwise, so it
+    commutes with the de-interleave and depuncture gathers (0 stays 0)."""
+    if soft.dtype == torch.int8:
+        return soft
+    return soft.clamp(-127, 127).to(torch.int8)
+
+
 def step_soft(soft: torch.Tensor, nbits: int) -> torch.Tensor:
-    """``soft`` (..., 4*(nbits+6)) -> K1's input: int8 [B, T, 4], clipped
-    to +-127 as ``viterbi_forward_words`` does (identity inside the
-    decode contract)."""
+    """``soft`` (..., 4*(nbits+6)) -> K1's input: int8 [B, T, 4].  A float
+    tensor is clipped to +-127 as ``viterbi_forward_words`` does (identity
+    inside the decode contract); an int8 tensor (the MSC chain casts once,
+    before its gathers) passes through with no clamp, cast or copy beyond
+    what contiguity needs."""
     T = nbits + conv.K - 1
     if soft.shape[-1] != 4 * T:
         raise ValueError(f"soft length {soft.shape[-1]} != 4*({nbits}+6)")
-    s = soft.reshape(-1, T, 4).clamp(-127, 127).to(torch.int8)
-    return s.contiguous()
+    return to_int8(soft.reshape(-1, T, 4)).contiguous()
 
 
 def pair_soft(soft: torch.Tensor, nbits: int, fmt: str) -> torch.Tensor:
     """``soft`` (..., 4*(nbits+6)) -> pair-step soft [B, T2, 8] of a word
-    format: clipped to +-127 and cast to int8 for "i8mxu"/"i8", cast to
-    float32 (no clip) for "f32"; an odd step count gets one zero step,
-    as ``viterbi_forward_words`` pads."""
+    format: clipped to +-127 and cast to int8 for "i8mxu"/"i8" (an int8
+    tensor passes through), cast to float32 (no clip) for "f32"; an odd
+    step count gets one zero step, as ``viterbi_forward_words`` pads."""
     if fmt not in WORD_FORMATS:
         raise ValueError(f"{fmt!r} is not a word format {tuple(WORD_FORMATS)}")
     T = nbits + conv.K - 1
@@ -118,18 +142,33 @@ def pair_soft(soft: torch.Tensor, nbits: int, fmt: str) -> torch.Tensor:
     if fmt == "f32":
         s = s.to(torch.float32)
     else:
-        s = s.clamp(-127, 127).to(torch.int8)
+        s = to_int8(s)
     if T % 2:
         s = torch.cat([s, s.new_zeros((s.shape[0], 1, 4))], dim=1)
     return s.reshape(s.shape[0], -1, 8).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
-def _signs(device: torch.device) -> torch.Tensor:
-    """[128] int32: register value r's four +-1 signs packed as int8x4."""
+def butterfly_signs() -> np.ndarray:
+    """[32, 4] int8: the signs of register value r = 2s, for s < 32.
+
+    K1 scores the four branches of the butterfly (s, s + 32) ->
+    (2s, 2s + 1) from this one row: every generator polynomial of the
+    code has its newest and its oldest tap set, so flipping bit 0 or bit 6
+    of r flips all four expected bits (checked here, not assumed)."""
     from dabjax_torch.fec.viterbi import branch_signs
-    packed = np.ascontiguousarray(branch_signs().astype(np.int8))
-    return torch.from_numpy(packed.view(np.int32).reshape(128)).to(device)
+    signs = branch_signs()
+    r = np.arange(128)
+    if not ((signs[r ^ 1] == -signs).all() and (signs[r ^ 64] == -signs).all()):
+        raise AssertionError("branch signs lack the butterfly symmetry")
+    return np.ascontiguousarray(signs[0:64:2].astype(np.int8))
+
+
+@functools.lru_cache(maxsize=None)
+def _signs(device: torch.device) -> torch.Tensor:
+    """[32] int32: :func:`butterfly_signs` packed as int8x4."""
+    return torch.from_numpy(butterfly_signs().view(np.int32).reshape(32)
+                            ).to(device)
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, ndim: int, name: str):
@@ -263,19 +302,63 @@ def viterbi_traceback_words_cuda(words: torch.Tensor, last: torch.Tensor,
     return bits
 
 
+def forward_sass_counts() -> dict:
+    """{"total", "SHFL", "VOTE"}: SASS instructions (no NOPs) of K1 in the
+    built library; its tile of TILE steps is unrolled, so a count over
+    TILE is nearly the count a step."""
+    from dabjax_torch.tools.vpu_probe import _sass_lengths
+    name = r"forward_acsEPK"
+    return {"total": _sass_lengths(name)[()],
+            **{op: _sass_lengths(name, (op,)).get((), 0)
+               for op in ("SHFL", "VOTE")}}
+
+
+def rotl5(x, k: int):
+    """Rotate the 5-bit value(s) ``x`` left by ``k`` (any integer)."""
+    k %= 5
+    return ((x << k) | (x >> (5 - k))) & 31
+
+
+@functools.lru_cache(maxsize=None)
+def decision_positions() -> np.ndarray:
+    """[TILE, 64] int64: where K1 keeps state s's decision of step t, as
+    ``32 * word + bit`` at row ``t % TILE``.
+
+    K1 never moves a path metric to the lane of its state: the lane that
+    holds states p and p + 32 computes 2p and 2p + 1 in place, so the
+    5-bit lane index of a state pair rotates one bit a step, and one
+    shuffle a tile puts it back.  The decisions stay where they are made:
+    word ``s & 1`` (the half of the lane's register), bit
+    ``rotr5(s >> 1, (t % TILE) % PHASES)`` (the lane).  K2 walks in these
+    coordinates; they are the port's own, between K1 and K2 only."""
+    s = np.arange(64)
+    return np.stack([32 * (s & 1) + rotl5(s >> 1, -(j % PHASES))
+                     for j in range(TILE)]).astype(np.int64)
+
+
+def _positions(T: int, device) -> torch.Tensor:
+    """[T, 64]: :func:`decision_positions` of steps 0 .. T - 1."""
+    pos = torch.as_tensor(decision_positions(), device=device)
+    return pos[torch.arange(T, device=device) % TILE]
+
+
 def pack_decisions(dec: torch.Tensor) -> torch.Tensor:
-    """bool [B, T, 64] decisions -> K1's decision words int32 [B, T, 2]
-    (the inverse of :func:`unpack_decisions`)."""
+    """bool [B, T, 64] decisions (by state) -> K1's decision words int32
+    [B, T, 2] (the inverse of :func:`unpack_decisions`)."""
+    B, T, _ = dec.shape
+    inverse = _positions(T, dec.device).argsort(dim=1)     # position -> state
+    placed = dec.to(torch.int64).gather(2, inverse.expand(B, T, 64))
     shifts = torch.arange(32, device=dec.device, dtype=torch.int64)
-    w = (dec.reshape(dec.shape[:-1] + (2, 32)).to(torch.int64)
-         << shifts).sum(dim=-1)
+    w = (placed.reshape(B, T, 2, 32) << shifts).sum(dim=-1)
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
 def unpack_decisions(dec: torch.Tensor) -> torch.Tensor:
-    """Decision words int32 [B, T, 2] -> bool [B, T, 64] (the layout of
-    :func:`dabjax_torch.fec.viterbi.viterbi_forward_torch`)."""
+    """K1's decision words int32 [B, T, 2] -> bool [B, T, 64] by state
+    (the layout of :func:`dabjax_torch.fec.viterbi.viterbi_forward_torch`)."""
+    B, T, _ = dec.shape
     shifts = torch.arange(32, device=dec.device, dtype=torch.int32)
-    bits = (dec[..., None] >> shifts) & 1                  # [B, T, 2, 32]
-    return bits.reshape(dec.shape[:-1] + (64,)).to(torch.bool)
+    bits = ((dec[..., None] >> shifts) & 1).reshape(B, T, 64)
+    return bits.gather(2, _positions(T, dec.device).expand(B, T, 64)
+                       ).to(torch.bool)
 

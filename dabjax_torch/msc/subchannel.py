@@ -17,11 +17,11 @@ import torch
 from torch import nn
 
 from dabjax_torch.constants import CU_BITS, DabParams
-from dabjax_torch.fec import prbs, puncture, viterbi
+from dabjax_torch.fec import prbs, puncture, viterbi, viterbi_cuda
 from dabjax_torch.msc.deinterleave import HISTORY, time_deinterleave
 
 __all__ = ["SubchGeometry", "subch_profile", "subch_puncture_mask",
-           "decode_subchannel",
+           "decode_subchannel", "msc_soft",
            "pack_bits_u8", "EnsembleDecoder"]
 
 
@@ -65,12 +65,29 @@ def subch_puncture_mask(protection: str, bitrate: int, prot_level: int
                                                prot_level))
 
 
+def msc_soft(cifs: torch.Tensor) -> torch.Tensor:
+    """CIF soft values in the type the Viterbi format decodes: int8
+    (clipped to +-127, ``viterbi_cuda.to_int8``) under the int8 formats,
+    unchanged under "f32".
+
+    The de-interleave and the depuncture only move values and insert
+    zeros, so the clip and cast give the same stream before them as after
+    them; done here, on the CIF block, they touch a quarter of the
+    full-rate stream's values once, and the gathers move int8."""
+    if viterbi_cuda.soft_format() == "f32":
+        return cifs
+    return viterbi_cuda.to_int8(cifs)
+
+
 def decode_subchannel(subch_soft: torch.Tensor, g: SubchGeometry,
                       deinterleave: bool = True) -> torch.Tensor:
     """``subch_soft`` [..., T, length_cus*64] -> [..., T - 15, 24*bitrate]
-    int32 logical-frame bits (output t is transmitted logical frame t)."""
+    int32 logical-frame bits (output t is transmitted logical frame t).
+    Float input is cast by :func:`msc_soft` first; the callers below cast
+    the whole CIF block once and pass int8."""
     lengths, pis = subch_profile(g.protection, g.bitrate,
                                 g.prot_level)
+    subch_soft = msc_soft(subch_soft)
     soft = time_deinterleave(subch_soft) if deinterleave else subch_soft
     full = puncture.depuncture_profile(soft, lengths, pis)
     return prbs.disperse(viterbi.viterbi_decode(full, 24 * g.bitrate))
@@ -109,6 +126,7 @@ class EnsembleDecoder(nn.Module):
         """``cifs`` [T, 55296] consecutive CIFs (T > 15) ->
         {subch_id: [T-15, 24*bitrate] bits}."""
         out: Dict[int, np.ndarray] = {}
+        cifs = msc_soft(cifs)
         for key, geoms in self._buckets.items():
             slices = torch.stack([
                 cifs[:, g.start_addr * CU_BITS:
@@ -126,6 +144,7 @@ class EnsembleDecoder(nn.Module):
         ``(merged_u8, new_hist, bucket_meta)`` with bucket_meta listing
         (geoms, output_shape) in merge order for the host-side split."""
         block = torch.cat([hist, cifs], dim=0)
+        soft = msc_soft(block)           # the history itself stays float
         T = block.shape[0]
         parts = [blob]
         meta = []
@@ -135,7 +154,7 @@ class EnsembleDecoder(nn.Module):
             n_bits = geoms[0].length_cus * CU_BITS
             cols = torch.arange(n_bits, device=block.device)
             idx = self.starts[off: off + n, None] * CU_BITS + cols
-            slices = block.index_select(1, idx.reshape(-1))
+            slices = soft.index_select(1, idx.reshape(-1))
             slices = slices.reshape(T, n, n_bits).transpose(0, 1)
             packed = pack_bits_u8(decode_subchannel(slices, geoms[0]))
             parts.append(packed.reshape(-1))

@@ -12,6 +12,7 @@ import torch
 
 from dabjax_torch.fec import conv, viterbi, viterbi_cuda as vc
 from dabjax_torch.fec.viterbi import viterbi_decode_np
+from dabjax_torch.tools import hbm_probe
 from dabjax_torch.tools import vit_dotshapes as vd
 from dabjax_torch.tools import vpu_probe2
 
@@ -55,6 +56,60 @@ def test_traceback_kernel_bit_exact_on_card(B, nbits):
     if B <= 384:
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       viterbi_decode_np(soft, nbits))
+
+
+def _forward_input(kind, B, nbits):
+    """int8 [B, nbits + 6, 4]: coded / near-tie / pure noise mixed, all
+    of a codeword +127 or -127, or values in -1 .. 1 (ties everywhere)."""
+    rng = np.random.default_rng(B * 7919 + nbits)
+    T = nbits + 6
+    if kind == "mixed":
+        soft = _soft(B, nbits, seed=B * 7919 + nbits).reshape(B, T, 4)
+    elif kind == "saturated":
+        soft = np.broadcast_to(rng.choice([-127, 127], (B, 1, 1)), (B, T, 4))
+    else:
+        soft = rng.integers(-1, 2, (B, T, 4))
+    return torch.from_numpy(soft.astype(np.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "saturated", "ties"])
+@pytest.mark.parametrize("nbits", [100, 101, 768, 2304, 9216])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 33, 384, 4428])
+def test_forward_kernel_bit_exact_on_card(B, nbits, kind):
+    """K1's decision words against the plain forward's (int32 metrics),
+    packed into K1's layout, some codewords at a time."""
+    dev = _card()
+    s8 = _forward_input(kind, B, nbits).to(dev)
+    dec = vc.viterbi_forward_cuda(s8)
+    step = max(1, 10_000_000 // (nbits + 6))
+    for i in range(0, B, step):
+        want = viterbi.viterbi_forward_torch(s8[i: i + step])
+        assert torch.equal(vc.unpack_decisions(dec[i: i + step]), want)
+    if B <= 5:
+        assert torch.equal(dec, vc.pack_decisions(
+            viterbi.viterbi_forward_torch(s8)))
+        assert torch.equal(dec, viterbi.viterbi_forward_lanes_torch(s8))
+
+
+@pytest.mark.cuda
+def test_forward_kernel_shuffles_on_card():
+    """One exchange a step and two a tile: K1's SASS holds fewer than two
+    shuffles a step, and its votes."""
+    _card()
+    sass = vc.forward_sass_counts()
+    assert 0 < sass["SHFL"] < 2 * vc.TILE and sass["VOTE"] >= 2 * vc.TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1160, 16, 4480), (3, 5, 36), (1, 1, 4)])
+def test_copy_kernel_bit_exact_on_card(shape):
+    dev = _card()
+    x = hbm_probe.input_block(shape, seed=3).to(dev)
+    x += torch.rand_like(x)
+    got, want = hbm_probe.scale_copy_cuda(x), hbm_probe.scale_copy_torch(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -127,14 +127,21 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_decision_word_layout_round_trips():
-    """The kernel's decision words (bit s % 32 of word s // 32 is state
-    s's decision) unpack to the plain forward ACS layout."""
+    """The kernel's decision words (state s's decision of step t is in
+    word s & 1, at the bit whose 5-bit index is s >> 1 rotated right by
+    (t % 32) % 5) unpack to the plain forward ACS layout."""
     rng = np.random.default_rng(3)
     soft = rng.integers(-127, 128, (3, 40, 4)).astype(np.int8)
     dec = viterbi.viterbi_forward_torch(torch.from_numpy(soft)).numpy()
-    weights = (1 << np.arange(32, dtype=np.int64))
-    words = np.stack([(dec[..., 32 * w: 32 * w + 32] * weights).sum(-1)
-                      for w in range(2)], axis=-1)
+    words = np.zeros(dec.shape[:2] + (2,), np.int64)
+    for t in range(dec.shape[1]):
+        k = (t % 32) % 5
+        for s in range(64):
+            u = s >> 1
+            bit = ((u >> k) | (u << (5 - k))) & 31
+            words[:, t, s & 1] |= dec[:, t, s].astype(np.int64) << bit
     words = words.astype(np.uint32).view(np.int32)
     got = viterbi_cuda.unpack_decisions(torch.from_numpy(words))
     np.testing.assert_array_equal(got.numpy(), dec)
+    np.testing.assert_array_equal(
+        viterbi_cuda.pack_decisions(torch.from_numpy(dec)).numpy(), words)
