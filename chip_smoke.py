@@ -15,19 +15,24 @@ non-zero exit at the first failure:
    version on K1's decisions, K1 + K2 against the numpy reference decoder
    (every batch up to 5 codewords, and the others of 1, 31, 33, 384 and
    4428 but 4428 x 9216 and the saturated ones), all bit-exact; the
-   shuffles a step in K1's SASS (fewer than the first K1's 5); then at
-   the main-path shapes (MSC: 4428 codewords of 2304 bits; FIC: 384 of
-   768) K1 and K2 against their plain versions, each timed with CUDA
-   events beside it (the median and spread of 5 runs), and the run fails
-   if K1 takes more than 0.25 ms or K2 more than 0.060 ms at the MSC
-   shape;
-3. word kernels: the radix-4 word forward (K3) in the formats i8mxu, i8
-   and f32 against its plain torch version (words equal element for
-   element) and K3 + the word traceback (K4) against the numpy decoder,
-   on the same three inputs at nbits 100, 101, 768, 1024, 2304 and 9216,
-   plus f32 soft at +-300; then at the main-path shapes (MSC and FIC, as
-   in phase 2) words, ``last`` and bits equal their plain versions, K3 and
-   K4 timed there beside them;
+   shuffles a step in K1's SASS (fewer than the first K1's 5); on every
+   input of that grid also the radix-4 word forward (K3) in the formats
+   i8mxu, i8 and f32 against its plain version (words and ``last``) and
+   K3 + the word traceback (K4) against the numpy decoder where K1 + K2
+   is checked against it, else against K1 + K2's bits; then at the
+   main-path shapes (MSC: 4428 codewords of 2304 bits; FIC: 384 of 768)
+   K1 and K2 against their plain versions, each timed with CUDA events
+   beside it (the median and spread of 5 runs), and the run fails if K1
+   takes more than 0.25 ms or K2 more than 0.060 ms at the MSC shape;
+3. word kernels: K3 in each word format against its plain torch version
+   (words equal element for element) and K3 + K4 against the numpy
+   decoder, on coded, near-tie and pure-noise input at nbits 100, 101,
+   768, 1024, 2304 and 9216, plus soft at +-300 (f32 unclipped, i8
+   clipped); then at the main-path shapes words, ``last`` and bits equal
+   their plain versions, K3 and K4 timed there beside them (the median
+   and spread of 5 runs), and the run fails at the MSC shape if K3 takes
+   more than 0.37 ms (i8mxu, i8) or 0.48 ms (f32), or K4 more than 0.10
+   ms on any format's words; K3's SASS shuffles and votes;
 4. pipeline: the 12 x 96 kbit/s EEP-A ensemble (Mode I, 96 frames, clean
    golden IQ) through ``full_ensemble_pipeline``: every FIB CRC passes and
    every subchannel's logical frames equal the transmitted payload; K1's
@@ -41,11 +46,13 @@ non-zero exit at the first failure:
    same AU, superframe, RS and MP2 counters, summed over the services),
    and one all-zero block;
 6. formats: the phase-4 ensemble again with ``SOFT_FMT`` i8mxu, then f32
-   (K3 + K4 in place of K1 + K2), payload-exact;
+   (K3 + K4 in place of K1 + K2), payload-exact, timed as in phase 4;
+   the run fails if the least of the i8mxu runs is above 3.6 ms;
 7. stages: ``pipeline_stages`` on the phase-4 ensemble under i8lane and
-   i8mxu, device ms of each prefix and of each stage, the median and
-   spread of 5 rounds, and of the prefixes' own sum over the full-rate
-   stream;
+   i8mxu, device ms of each prefix (enqueued behind a device sleep, so
+   the host's issue rate does not enter) and of each stage, the median
+   and spread of 5 rounds; the run fails if the median
+   ``traceback_dispersal`` stage is not above 0;
 8. entry points: ``python -m dabjax_torch info`` and ``scan`` in-process
    on a rendered ``.raw`` file, and a 3-channel ``MultiReceiver`` bank
    with one device-to-host copy per block period;
@@ -179,6 +186,13 @@ K1_BATCHES = (1, 3, 4, 5, 31, 33, 384, 4428)
 #: of 5 runs of 10 calls), the 96-frame batch under i8lane (the least of
 #: 10 runs of 5 batches)
 K1_GATE_MS, K2_GATE_MS, BATCH_GATE_MS = 0.25, 0.060, 3.75
+#: gates of the word kernels at the MSC shape, ms (medians of 5 runs of
+#: 10 calls): K3 by format, about 9 % above its bring-up times (0.338 and
+#: 0.444 ms on an H100 at 700 W; the pack is half of it, PERF.md), K4 on
+#: each format's words; the 96-frame batch under i8mxu (the least of 10
+#: runs of 5 batches)
+K3_GATE_MS = {"i8mxu": 0.37, "i8": 0.37, "f32": 0.48}
+K4_GATE_MS, WORDS_BATCH_GATE_MS = 0.10, 3.6
 #: the numpy reference decodes batches up to this many bits
 NUMPY_LIMIT = 4428 * 2304
 #: warp shuffles a step of the first K1 (one soft broadcast, four metrics)
@@ -207,6 +221,31 @@ def _k1_mismatches(dec, soft8) -> int:
 def _runs_ms(fn, runs: int = 5, reps: int = 10) -> list:
     """Sorted ms of ``runs`` runs of ``reps`` calls of ``fn``."""
     return sorted(_cuda_ms(fn, reps) for _ in range(runs))
+
+
+def _word_grid_checks(s, nbits, name, k2_bits, want):
+    """K3 in each word format against its plain version (words and
+    ``last``) on the soft bits ``s`` of phase 2's grid, and K3 + K4 bits
+    against the numpy decoder's ``want`` where phase 2 computed it, else
+    against K1 + K2's bits (equal to their plain versions there)."""
+    import numpy as np
+    import torch
+    from dabjax_torch.fec import viterbi, viterbi_cuda as vc
+    B = s.shape[0]
+    for fmt in vc.WORD_FORMATS:
+        words, last = vc.viterbi_forward_words_cuda(
+            vc.pair_soft(s, nbits, fmt), fmt)
+        plain_w, plain_l = viterbi.viterbi_forward_words_torch(s, nbits, fmt)
+        _check(torch.equal(words, plain_w) and torch.equal(last, plain_l),
+               f"K3 != plain at B={B} nbits={nbits} ({name}, {fmt})")
+        del plain_w, plain_l
+        bits = vc.viterbi_traceback_words_cuda(words, last, nbits)
+        if want is None:
+            _check(torch.equal(bits, k2_bits),
+                   f"K3+K4 != K1+K2 at B={B} nbits={nbits} ({name}, {fmt})")
+        else:
+            _check(np.array_equal(bits.cpu().numpy(), want),
+                   f"K3+K4 != numpy at B={B} nbits={nbits} ({name}, {fmt})")
 
 
 def phase_kernels(dev, report):
@@ -239,11 +278,12 @@ def phase_kernels(dev, report):
                 # cover) and on every batch up to 5 codewords
                 k2_grid = (name != "saturated" and B in K2_BATCHES
                            and B * nbits <= NUMPY_LIMIT)
-                if not (k2_grid or B <= 5):
-                    continue
-                want = viterbi_decode_np(soft, nbits)
-                _check(np.array_equal(got.cpu().numpy(), want),
-                       f"K1+K2 != numpy at B={B} nbits={nbits} ({name})")
+                want = None
+                if k2_grid or B <= 5:
+                    want = viterbi_decode_np(soft, nbits)
+                    _check(np.array_equal(got.cpu().numpy(), want),
+                           f"K1+K2 != numpy at B={B} nbits={nbits} ({name})")
+                _word_grid_checks(s, nbits, name, got, want)
                 if not k2_grid:
                     continue
                 _check(torch.equal(viterbi.viterbi_decode(s, nbits), got),
@@ -254,7 +294,9 @@ def phase_kernels(dev, report):
                         f"plain decode != numpy at B={B} nbits={nbits}")
         print(f"kernels: nbits={nbits} B={K1_BATCHES} coded/near_tie/"
               "pure_noise/saturated: K1 and K2 bit-exact vs plain torch, "
-              f"K1+K2 vs numpy ({time.perf_counter() - t0:.0f} s)")
+              "K1+K2 vs numpy; K3 words equal plain and K3+K4 bits equal "
+              f"numpy (or K1+K2) in i8mxu, i8, f32 "
+              f"({time.perf_counter() - t0:.0f} s)")
 
     sass = vc.forward_sass_counts()
     per_step = sass["SHFL"] / vc.TILE
@@ -347,7 +389,8 @@ def phase_words(dev, report):
     print("words: +-300 soft: f32 (unclipped) and i8 (clipped) exact")
 
     # the main-path shapes, as phase_kernels: words, last and bits against
-    # the plain versions
+    # the plain versions; K3 and K4 timed there (5 runs of 10 calls, the
+    # median and the spread)
     for label, B, nbits in (("msc", 4428, 2304), ("fic", 384, 768)):
         soft = torch.from_numpy(rng.integers(-127, 128, (B, 4 * (nbits + 6)))
                                 .astype(np.float32)).to(dev)
@@ -364,22 +407,44 @@ def phase_words(dev, report):
             err4 = int((bits - plain_bits).abs().max())
             _check(err3 == 0, f"K3 words differ at the {label} shape ({fmt})")
             _check(err4 == 0, f"K4 bits differ at the {label} shape ({fmt})")
-            k3_ms = _cuda_ms(lambda: vc.viterbi_forward_words_cuda(x, fmt),
-                             10)
+            k3_runs = _runs_ms(lambda: vc.viterbi_forward_words_cuda(x, fmt))
             k3_plain = _cuda_ms(
                 lambda: viterbi.viterbi_forward_words_torch(soft, nbits, fmt),
                 1)
-            k4_ms = _cuda_ms(
-                lambda: vc.viterbi_traceback_words_cuda(words, last, nbits),
-                10)
+            k4_runs = _runs_ms(
+                lambda: vc.viterbi_traceback_words_cuda(words, last, nbits))
             k4_plain = _cuda_ms(
                 lambda: viterbi.viterbi_traceback_words_torch(words, last,
                                                               nbits), 1)
+            k3_ms, k4_ms = k3_runs[2], k4_runs[2]
             print(f"words: {label} B={B} nbits={nbits} {fmt}: K3 "
-                  f"{k3_ms:.4f} ms (plain {k3_plain:.2f} ms), K4 "
-                  f"{k4_ms:.4f} ms (plain {k4_plain:.2f} ms), exact")
+                  f"{k3_ms:.4f} ms (min {k3_runs[0]:.4f}, max "
+                  f"{k3_runs[-1]:.4f}; plain {k3_plain:.2f} ms), K4 "
+                  f"{k4_ms:.4f} ms (min {k4_runs[0]:.4f}, max "
+                  f"{k4_runs[-1]:.4f}; plain {k4_plain:.2f} ms), exact")
             report[f"words_{label}_{fmt}"] = dict(
-                k3=(err3, k3_ms, k3_plain), k4=(err4, k4_ms, k4_plain))
+                k3=(err3, k3_ms, k3_plain), k4=(err4, k4_ms, k4_plain),
+                k3_runs_ms=k3_runs, k4_runs_ms=k4_runs)
+    for fmt in vc.WORD_FORMATS:
+        k3_ms = report[f"words_msc_{fmt}"]["k3"][1]
+        k4_ms = report[f"words_msc_{fmt}"]["k4"][1]
+        _check(k3_ms <= K3_GATE_MS[fmt],
+               f"K3 ({fmt}) at the MSC shape: {k3_ms:.4f} ms, above "
+               f"{K3_GATE_MS[fmt]}")
+        _check(k4_ms <= K4_GATE_MS,
+               f"K4 on {fmt} words at the MSC shape: {k4_ms:.4f} ms, above "
+               f"{K4_GATE_MS}")
+
+    # K3's SASS: the core's tile of 32 steps is unrolled (two votes a
+    # step), word 0's pair step is a rolled loop
+    sass = {fmt: vc.forward_words_sass_counts(fmt) for fmt in vc.WORD_FORMATS}
+    for fmt, c in sass.items():
+        print(f"words: K3 {fmt} SASS: {c['total']} instructions, of them "
+              f"{c['SHFL']} SHFL and {c['VOTE']} VOTE (one tile of "
+              f"{vc.TILE} steps unrolled, word 0's pair step rolled)")
+        _check(c["VOTE"] >= 2 * vc.TILE and 0 < c["SHFL"] < 2 * vc.TILE,
+               f"K3 {fmt} SASS: {c}")
+    report["k3_sass"] = sass
 
 
 def _check_ensemble(ok, bits, golden):
@@ -585,15 +650,21 @@ def phase_formats(dev, report, golden):
                    f"{fmt}: K1/K2 launched ({before} -> {after})")
             _check(after[2] > before[2] and after[3] > before[3],
                    f"{fmt}: K3/K4 not launched ({before} -> {after})")
-            sec = _cuda_ms(lambda: pipe(rows), 5) / 1e3
+            runs = _runs_ms(lambda: pipe(rows), runs=10, reps=5)
+            sec = (runs[4] + runs[5]) / 2e3
             print(f"formats: {fmt}: 12 subchannels x {n_lf} logical frames "
                   f"exact, {n_fib} FIBs pass CRC, through K3+K4 only; "
-                  f"{sec:.4f} s per {n_frames}-frame batch = "
+                  f"{sec:.4f} s per {n_frames}-frame batch (min "
+                  f"{runs[0]:.4f}, max {runs[-1]:.4f} ms) = "
                   f"{n_frames * p.T_F / FS / sec:.2f}x realtime")
-            out[fmt] = dict(seconds_per_batch=sec)
+            out[fmt] = dict(seconds_per_batch=sec, batch_runs_ms=runs)
     finally:
         vc.SOFT_FMT = "i8lane"
     report["formats"] = out
+    least = out["i8mxu"]["batch_runs_ms"][0]
+    _check(least <= WORDS_BATCH_GATE_MS,
+           f"the i8mxu batch takes {least:.4f} ms at the least, above "
+           f"{WORDS_BATCH_GATE_MS}")
 
 
 #: rounds of the stage timing: each round times every prefix (mean of 5
@@ -601,10 +672,29 @@ def phase_formats(dev, report, golden):
 STAGE_ROUNDS = 5
 
 
+def _device_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls: CUDA events around
+    the calls, enqueued behind a 0.1 s device sleep so that the device
+    runs them back to back however slowly the host issues them (a batch
+    is a few hundred small PyTorch calls, and on a loaded host their
+    issue outlasts the device work)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)          # cycles: 0.1 s at 2 GHz
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 def phase_stages(dev, report, golden):
     import math
     import statistics
-    import torch
     from dabjax_torch.fec import viterbi_cuda as vc
     from dabjax_torch.runtime.pipeline import pipeline_stages
 
@@ -617,7 +707,7 @@ def phase_stages(dev, report, golden):
             for name, fn in fns.items():
                 v = float(fn(rows))
                 _check(math.isfinite(v), f"stage {name} ({fmt}) gave {v}")
-            rounds = [{name: _cuda_ms(lambda f=fn: f(rows), 5)
+            rounds = [{name: _device_ms(lambda f=fn: f(rows), 5)
                        for name, fn in fns.items()}
                       for _ in range(STAGE_ROUNDS)]
             stage_rounds = [{
@@ -640,26 +730,11 @@ def phase_stages(dev, report, golden):
             print(f"stages ({fmt}): stage ms, median (min-max) " +
                   ", ".join(f"{k} {v:.4f} ({spread[k][0]:.4f}-"
                             f"{spread[k][1]:.4f})" for k, v in stages.items()))
-            # what the prefixes' own sum over the full-rate stream costs
-            # (the full pipeline forms no such sum): it sits in the
-            # deint_depunct stage and is missing from the last one.  The
-            # stream is int8 under the int8 formats, float32 before the
-            # cast moved in front of the gathers.
-            n_lf = golden["n_frames"] * p.cifs_per_frame - 15
-            shape = (len(golden["geoms"]), n_lf, 4 * (2304 + 6))
-            sums = {}
-            for dtype in (torch.int8, torch.float32):
-                stream = torch.zeros(shape, device=dev, dtype=dtype)
-                sums[str(dtype).replace("torch.", "")] = _cuda_ms(
-                    lambda: stream.sum(), 10)
-                del stream
-            print(f"stages ({fmt}): the prefixes' sum over the full-rate "
-                  f"stream (int8) takes {sums['int8']:.4f} ms of "
-                  f"deint_depunct ({sums['float32']:.4f} ms for a float32 "
-                  "stream), and traceback_dispersal = full - "
-                  "viterbi_forward lacks it and the other sums")
+            _check(stages["traceback_dispersal"] > 0,
+                   f"stages ({fmt}): traceback_dispersal "
+                   f"{stages['traceback_dispersal']:.4f} ms, not above 0")
             out[fmt] = dict(prefix_ms=ms, stage_ms=stages,
-                            stage_spread_ms=spread, stream_sum_ms=sums)
+                            stage_spread_ms=spread)
     finally:
         vc.SOFT_FMT = "i8lane"
     report["stages"] = out
@@ -1299,11 +1374,15 @@ def _kernel_lines(report, launches):
         line("viterbi_forward_acs_words", src,
              "dabjax/fec/viterbi_pallas.py:149", launches["k3"], err["k3"],
              words["k3"][1], words["k3"][2], None,
-             _bound(words_io, B * T2 * acs4, "lane_op")),
+             _bound(words_io, B * T2 * acs4, "lane_op"),
+             runs_ms=words["k3_runs_ms"], sass=report["k3_sass"]["i8mxu"],
+             ms_by_format={f: report[f"words_msc_{f}"]["k3"][1]
+                           for f in vc.WORD_FORMATS}),
         line("viterbi_traceback_words", src,
              "dabjax/fec/viterbi_pallas.py:218", launches["k4"], err["k4"],
              words["k4"][1], words["k4"][2], None,
-             _bound(B * T2 * 4 + B * nbits * 4, B * T2 * 3, "lane_op")),
+             _bound(B * T2 * 4 + B * nbits * 4, B * T2 * 3, "lane_op"),
+             runs_ms=words["k4_runs_ms"]),
         line("forward_words_stage", probes, "tools/vit_variants2.py:47",
              pl["vit_variants2"], stages["err"],
              stages["modes"]["full"]["ms"],

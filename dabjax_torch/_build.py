@@ -112,7 +112,8 @@ def load_library() -> ctypes.CDLL:
     lib.dabjax_viterbi_forward.restype = i
     lib.dabjax_viterbi_traceback.argtypes = [vp, vp, i, i, i, vp]
     lib.dabjax_viterbi_traceback.restype = i
-    lib.dabjax_viterbi_forward_words.argtypes = [vp, vp, vp, vp, i, i, i, vp]
+    lib.dabjax_viterbi_forward_words.argtypes = [vp, vp, vp, vp, vp, i, i, i,
+                                                  vp]
     lib.dabjax_viterbi_forward_words.restype = i
     lib.dabjax_viterbi_traceback_words.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.dabjax_viterbi_traceback_words.restype = i

@@ -13,11 +13,14 @@
 // Soft values are integers in [-127, 127] (the demod's rounded soft-bit
 // contract), so int8 inputs and integer path metrics are exact: the
 // largest metric growth is 508 per step, 4.7e6 over the 9222 steps of a
-// 384 kbit/s subchannel, far inside int32 with the -2^29 start of the
-// states other than 0 (K3: no renormalisation needed); K1 keeps 16-bit
-// metrics and renormalises once a tile (see there).
+// 384 kbit/s subchannel.  K1, and K3 under its int8 formats after its
+// first word, keep 16-bit metrics relative to state 0 and renormalise
+// once a tile (see K1); K3's first word keeps the format's int32 or float
+// metrics from dabjax's start values, and K3 under "f32" (unclipped soft)
+// float metrics throughout.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "acs.cuh"
@@ -350,96 +353,367 @@ traceback(const uint2* __restrict__ dec,  // [B, T] decision words
 // stream, int32 metrics from 0 / -2^29; i8: int8 stream, float metrics
 // from 0 / -1e9; f32: float stream, float metrics from 0 / -1e9).
 //
-// What bounds it on the card: as K1, a sequential chain per codeword, now
-// of T/2 pair steps, each 8 warp shuffles of path metrics, 16 dp4a (or 64
-// float multiply-adds), 8 adds and two 4-way selections per lane, and
-// one 4-byte decision word per state every 16 pairs.  Design: one warp per
-// codeword; lane l holds states l and l + 32.  The four predecessors of
-// state l sit in lanes l >> 2 and 16 + (l >> 2), those of l + 32 in lanes
-// 8 + (l >> 2) and 24 + (l >> 2), each as a lo (state < 32) and a hi
-// metric, so a pair step is 8 shuffles with no shared memory.  Pair
-// steps are read 32 at a time, one coalesced load per warp (256 bytes of
-// int8 or 1 KB of float), and broadcast by shuffle.  Each lane packs its
-// two states' 2-bit branches for 16 pairs and stores them as one word
-// each: the 64 words of a codeword's word index are one coalesced
-// 256-byte store.  The output layout is [B, W, 64]; the wrapper returns
-// it as the [W, 64, B] view of the TPU kernel's output.
-//
-// Word padding: pair steps >= T2 are never computed, so their slots of
-// the last word stay e = 0, which is the TPU kernel's in-loop mask.  The
-// lane-0 `da` of the last pair step (state 0's decision at step 2(T2-1))
-// goes to last[b]: when T is odd, that is the true last trellis step, and
-// the word layout, whose last pair ends on a zero-soft padding step,
-// does not keep it when d1 = 1 (see K4).
-template <typename M, typename S>
-__global__ void __launch_bounds__(128)
-forward_acs_words(const typename S::Pair* __restrict__ soft,   // [B, T2]
-                  const typename S::Pair* __restrict__ signs,  // [256]
-                  int32_t* __restrict__ dec,                   // [B, W, 64]
-                  int32_t* __restrict__ last,                  // [B]
-                  int B, int T2, M start) {
-  using Pair = typename S::Pair;
-  const int cw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (cw >= B) return;  // whole warps exit together
-  const int W = (T2 + kPairsPerWord - 1) / kPairsPerWord;
-  const Pair* s = soft + static_cast<size_t>(cw) * T2;
-  int32_t* d = dec + static_cast<size_t>(cw) * W * 64;
+// What bounds it on the card: as K1, a chain of T dependent radix-2 steps
+// per codeword, one warp a codeword, so the number of instructions a step
+// takes; on top of K1's step, the repack of each tile's votes into words.
+// A radix-4 decision is two radix-2 decisions: for new state n at pair
+// step tau, d1 is n's decision at trellis step 2tau+1 and d0 that of
+// q = (n >> 1) | (d1 << 5) at step 2tau, because both candidates of an
+// inner maximum pass through q and add the same second-step branch
+// metric; with strict '>' in both (acs.cuh select4) ties agree too, as
+// long as the metrics are exact.  They are once every state is live
+// (after pair step 2) except where dabjax's -1e9 float start rounds, in
+// the first pair steps.  Design, per warp and codeword:
+//  * Word 0 (pair steps 0-15) runs dabjax's radix-4 recursion with its
+//    own metric type and start (k3_word0): lane l holds states l and
+//    l + 32, 8 metric shuffles a pair step.  That gives the float
+//    formats' rounded word 0 and costs 16 of the 1155 pair steps of the
+//    MSC shape.
+//  * From tile 1 on (a tile of kFwTile = 32 trellis steps is one word of
+//    16 pair steps) K1's in-place core runs, started from word 0's
+//    metrics moved into K1's tile-start layout: one exchange shuffle a
+//    step, votes into shared memory, one shuffle a tile.  i8mxu and i8
+//    (|soft| <= 127) use K1's u16x2 metrics relative to state 0, exact
+//    within K1's bounds.  f32 is not clipped (|soft| may pass 127), so it
+//    keeps one float metric a state with IEEE adds, two a lane, and still
+//    one shuffle a step: the lane sends the metric that leaves and keeps
+//    the one that stays.  Its words are exact while the metrics are
+//    integers below 2^24 in magnitude (|soft| * 4 * T), as the TPU
+//    kernel's own rounding-free range.
+//  * Word pack: lane l turns the tile's 64 vote words into the words of
+//    states l and l + 32 (two bit extractions a state and pair, at K1's
+//    rotated positions; see k3_pack_pair) and the warp stores the 64
+//    words of the word index as one 256-byte row.  The pack costs about
+//    as much as the core: 0.16 of 0.35 ms at the MSC shape (measured with
+//    it taken out), the reason K3 is twice K1.
+// Word padding: pair steps >= T2 of the last word are masked to e = 0
+// (the core's last tile runs its 32 steps on zero soft).  last[b], state
+// 0's radix-2 decision at step 2(T2-1), is bit 0 of that step's low vote
+// word (or word 0's `da`): when T is odd that is the true last trellis
+// step, and the word layout, whose last pair ends on a zero-soft padding
+// step, does not keep it when d1 = 1 (see K4).  The output layout is
+// [B, W, 64]; the wrapper returns it as the [W, 64, B] view of the TPU
+// kernel's output.
+constexpr int kWdWarps = 4;                   // warps (codewords) of a block
 
-  // branch rows e*64 + n of the eight candidates this lane scores:
-  // sg[e] for state lane, sg[4 + e] for state lane + 32
-  Pair sg[8];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    sg[e] = signs[e * 64 + lane];
-    sg[4 + e] = signs[e * 64 + 32 + lane];
-  }
-  M pm_lo = (lane == 0) ? M(0) : start;  // metric of state lane
-  M pm_hi = start;                       // metric of state lane + 32
+// Word 0: pair steps 0 .. n0 - 1 (n0 = min(16, T2)) of dabjax's radix-4
+// recursion, stored as the 64 words of word index 0; leaves the metrics
+// of states lane (pm_lo) and lane + 32 (pm_hi) and state 0's inner
+// decision of the last pair step.  The four predecessors of state l sit
+// in lanes l >> 2 and 16 + (l >> 2), those of l + 32 in lanes
+// 8 + (l >> 2) and 24 + (l >> 2), each as a lo and a hi metric.
+template <typename M, typename S>
+__device__ __forceinline__ void k3_word0(
+    const typename S::Pair* __restrict__ s,
+    const typename S::Pair* __restrict__ signs, int32_t* __restrict__ d,
+    int n0, M start, int lane, M& pm_lo, M& pm_hi, bool& da0) {
+  using Pair = typename S::Pair;
+  pm_lo = (lane == 0) ? M(0) : start;
+  pm_hi = start;
   const int q = lane >> 2;
   const int src_a = q, src_b = 16 + q, src_c = 8 + q, src_d = 24 + q;
   unsigned acc_lo = 0, acc_hi = 0;
-  bool da0 = false;
-
-  for (int t0 = 0; t0 < T2; t0 += 32) {
-    const int n = min(32, T2 - t0);
-    const Pair w = (lane < n) ? s[t0 + lane] : S::zero();
-    for (int j = 0; j < n; ++j) {
-      const Pair x = S::shfl(w, j);
-      // state lane: e=0 p=q, e=1 p=16+q, e=2 p=32+q, e=3 p=48+q
-      const M a_lo = __shfl_sync(kFull, pm_lo, src_a);
-      const M a_hi = __shfl_sync(kFull, pm_hi, src_a);
-      const M b_lo = __shfl_sync(kFull, pm_lo, src_b);
-      const M b_hi = __shfl_sync(kFull, pm_hi, src_b);
-      // state lane + 32: e=0 p=8+q, e=1 p=24+q, e=2 p=40+q, e=3 p=56+q
-      const M c_lo = __shfl_sync(kFull, pm_lo, src_c);
-      const M c_hi = __shfl_sync(kFull, pm_hi, src_c);
-      const M d_lo = __shfl_sync(kFull, pm_lo, src_d);
-      const M d_hi = __shfl_sync(kFull, pm_hi, src_d);
-      bool da_lo, da_hi;
-      const unsigned e_lo = select4(
-          cand(a_lo, S::bm(x, sg[0])), cand(b_lo, S::bm(x, sg[1])),
-          cand(a_hi, S::bm(x, sg[2])), cand(b_hi, S::bm(x, sg[3])),
-          pm_lo, da_lo);
-      const unsigned e_hi = select4(
-          cand(c_lo, S::bm(x, sg[4])), cand(d_lo, S::bm(x, sg[5])),
-          cand(c_hi, S::bm(x, sg[6])), cand(d_hi, S::bm(x, sg[7])),
-          pm_hi, da_hi);
-      const int tau = t0 + j;
-      const int slot = tau & (kPairsPerWord - 1);
-      acc_lo |= e_lo << (2 * slot);
-      acc_hi |= e_hi << (2 * slot);
-      if (slot == kPairsPerWord - 1 || tau == T2 - 1) {
-        int32_t* row = d + (tau / kPairsPerWord) * 64;
-        row[lane] = static_cast<int32_t>(acc_lo);
-        row[32 + lane] = static_cast<int32_t>(acc_hi);
-        acc_lo = 0;
-        acc_hi = 0;
-      }
-      da0 = da_lo;
-    }
+  const Pair w = (lane < n0) ? s[lane] : S::zero();
+#pragma unroll 1
+  for (int j = 0; j < n0; ++j) {
+    const Pair x = S::shfl(w, j);
+    // state lane: e=0 p=q, e=1 p=16+q, e=2 p=32+q, e=3 p=48+q
+    const M a_lo = __shfl_sync(kFull, pm_lo, src_a);
+    const M a_hi = __shfl_sync(kFull, pm_hi, src_a);
+    const M b_lo = __shfl_sync(kFull, pm_lo, src_b);
+    const M b_hi = __shfl_sync(kFull, pm_hi, src_b);
+    // state lane + 32: e=0 p=8+q, e=1 p=24+q, e=2 p=40+q, e=3 p=56+q
+    const M c_lo = __shfl_sync(kFull, pm_lo, src_c);
+    const M c_hi = __shfl_sync(kFull, pm_hi, src_c);
+    const M d_lo = __shfl_sync(kFull, pm_lo, src_d);
+    const M d_hi = __shfl_sync(kFull, pm_hi, src_d);
+    // branch rows e*64 + n, read where they are used (16 steps; L1)
+    bool da_lo, da_hi;
+    const unsigned e_lo = select4(
+        cand(a_lo, S::bm(x, signs[lane])),
+        cand(b_lo, S::bm(x, signs[64 + lane])),
+        cand(a_hi, S::bm(x, signs[128 + lane])),
+        cand(b_hi, S::bm(x, signs[192 + lane])), pm_lo, da_lo);
+    const unsigned e_hi = select4(
+        cand(c_lo, S::bm(x, signs[32 + lane])),
+        cand(d_lo, S::bm(x, signs[96 + lane])),
+        cand(c_hi, S::bm(x, signs[160 + lane])),
+        cand(d_hi, S::bm(x, signs[224 + lane])), pm_hi, da_hi);
+    acc_lo |= e_lo << (2 * j);
+    acc_hi |= e_hi << (2 * j);
+    da0 = da_lo;
   }
-  if (lane == 0) last[cw] = da0 ? 1 : 0;
+  d[lane] = static_cast<int32_t>(acc_lo);
+  d[32 + lane] = static_cast<int32_t>(acc_hi);
+}
+
+// The pack: the radix-4 words of states lane (acc_a) and lane + 32
+// (acc_b) of one tile from its vote words (low word, high word of each
+// step).  Pair jp's d1 is n's decision at step 2jp + 1 (word n & 1 =
+// lane & 1, bit rotr5(n >> 1, ph1)); its d0 is q's at step 2jp (word
+// q & 1 = (lane >> 1) & 1, bit rotr5(q >> 1, ph0) = rotr5(n >> 2, ph0) +
+// (d1 << (4 - ph0)): d1 is bit 4 of q >> 1, and its place after the
+// rotation is a constant of the unrolled pair).  State lane + 32 adds the
+// constant rotr5(16, ph1) to the first position and rotr5(8, ph0) to the
+// second (bits that are clear there).  About 15 instructions a pair for
+// both states, in two forms, each the faster one for its core (measured):
+//  * k3_pack_pair, integer-ALU: each bit fetched by one funnel rotation
+//    that puts it where the word wants it (bit 2jp for d1, 2jp + 1 for
+//    d0) and merged under a constant mask; p1[ph] = rotr5(lane >> 1, ph),
+//    p0[ph] = rotr5(lane >> 2, ph).  The u16 core calls it as soon as a
+//    pair's two steps are voted (0.338 ms against 0.348 after the tile).
+//  * k3_pack_imad, multiplies: x * 2^(31 - p) puts bit p at bit 31 and
+//    hi(y * 2) takes it (IMAD, IMAD.HI), so the pack runs beside the
+//    float core's integer work; m1[ph] = 2^(31 - p1 - rotr5(16, ph)) and
+//    m0[ph] = 2^(31 - p0 - rotr5(8, ph) - rotr5(16, ph)) put the highest
+//    of a pair's candidate bits at 31, and a multiplier chosen by d1
+//    moves the wanted one there.  After the tile (0.444 ms against 0.475
+//    with k3_pack_pair, 0.490 with it in the steps).
+
+// x rotated right by k (mod 32)
+__device__ __forceinline__ unsigned rotr32(unsigned x, unsigned k) {
+  return __funnelshift_r(x, x, k);
+}
+
+__device__ __forceinline__ void k3_pack_pair(unsigned w1, unsigned w0, int jp,
+                                             const int (&p1)[kFwPhases],
+                                             const int (&p0)[kFwPhases],
+                                             unsigned& acc_a,
+                                             unsigned& acc_b) {
+  const int ph1 = (2 * jp + 1) % kFwPhases, ph0 = (2 * jp) % kFwPhases;
+  const int c = 4 - ph0;                           // d1's bit in q >> 1
+  const int s1 = 16 >> ph1;                        // rotr5(16, ph1)
+  const int s0 = rotl5(8, -ph0);                   // rotr5(8, ph0)
+  // bit 2jp: d1 of state lane; bit 2jp + s1: of state lane + 32
+  const unsigned ta = rotr32(w1, p1[ph1] - 2 * jp);
+  const unsigned tb = rotr32(ta, s1);
+  const unsigned ca =
+      (2 * jp >= c ? ta >> (2 * jp - c) : ta << (c - 2 * jp)) & (1u << c);
+  const unsigned cb =
+      (2 * jp >= c ? tb >> (2 * jp - c) : tb << (c - 2 * jp)) & (1u << c);
+  // bit 2jp + 1: d0
+  const unsigned ya = rotr32(w0, ca + p0[ph0] - (2 * jp + 1));
+  const unsigned yb = rotr32(w0, cb + p0[ph0] + s0 - (2 * jp + 1));
+  const unsigned m1 = 1u << (2 * jp), m0 = 2u << (2 * jp);
+  acc_a |= (ta & m1) | (ya & m0);
+  acc_b |= (tb & m1) | (yb & m0);
+}
+
+__device__ __forceinline__ void k3_pack_imad(const uint2* __restrict__ v,
+                                             const unsigned (&m1)[kFwPhases],
+                                             const unsigned (&m0)[kFwPhases],
+                                             int lane, unsigned& acc_a,
+                                             unsigned& acc_b) {
+  const unsigned* w1p = reinterpret_cast<const unsigned*>(v) + (lane & 1);
+  const unsigned* w0p =
+      reinterpret_cast<const unsigned*>(v) + ((lane >> 1) & 1);
+  unsigned two = 2;
+  asm volatile("" : "+r"(two));     // a multiply, not a shift: IMAD.HI
+  acc_a = 0;
+  acc_b = 0;
+#pragma unroll
+  for (int jp = 0; jp < kFwTile / 2; ++jp) {
+    const int ph1 = (2 * jp + 1) % kFwPhases, ph0 = (2 * jp) % kFwPhases;
+    const unsigned c = 1u << (4 - ph0);            // rotr5(16, ph0)
+    const unsigned s1 = 16u >> ph1;                // rotr5(16, ph1)
+    const unsigned s0 = static_cast<unsigned>(rotl5(8, -ph0));
+    // d1 of lane + 32 at bit 31, of lane at bit 31 - s1
+    const unsigned t1 = w1p[2 * (2 * jp + 1)] * m1[ph1];
+    const unsigned d1b = __umulhi(t1, two);
+    const unsigned d1a = __umulhi(t1 * (1u << s1), two);
+    // q's candidates at 31 - {s0 + c, s0, c, 0}: (lane, d1 = 0), (lane,
+    // 1), (lane + 32, 0), (lane + 32, 1)
+    const unsigned t0 = w0p[2 * (2 * jp)] * m0[ph0];
+    const unsigned ma =
+        (1u << (s0 + c)) - d1a * ((1u << (s0 + c)) - (1u << s0));
+    const unsigned mb = (1u << c) - d1b * ((1u << c) - 1u);
+    const unsigned d0a = __umulhi(t0 * ma, two);
+    const unsigned d0b = __umulhi(t0 * mb, two);
+    acc_a += d1a * (1u << (2 * jp)) + d0a * (2u << (2 * jp));
+    acc_b += d1b * (1u << (2 * jp)) + d0b * (2u << (2 * jp));
+  }
+}
+
+template <typename M0, typename S, bool kF32, int kMinBlocks>
+__global__ void __launch_bounds__(32 * kWdWarps, kMinBlocks)
+forward_acs_words(const typename S::Pair* __restrict__ soft,   // [B, T2]
+                  const typename S::Pair* __restrict__ signs,  // [256]
+                  const int32_t* __restrict__ bsigns,          // [32]
+                  int32_t* __restrict__ dec,                   // [B, W, 64]
+                  int32_t* __restrict__ last,                  // [B]
+                  int B, int T2, M0 start) {
+  // a trellis step: four int8 soft values, or four floats
+  using Step = typename std::conditional<kF32, float4, int32_t>::type;
+  __shared__ __align__(16) int32_t xs[kWdWarps][2][kFwTile];
+  // f32: the 16 signed sums of each step's four soft values, [pattern]
+  // [step], rows padded so that a step's 16 and a pattern's 32 are in
+  // distinct banks
+  __shared__ float bms[kWdWarps][kF32 ? 16 : 1][kFwTile + 1];
+  __shared__ __align__(16) uint2 ds[kWdWarps][kFwTile];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int cw = blockIdx.x * kWdWarps + warp;
+  if (cw >= B) return;  // whole warps exit together
+  const int W = (T2 + kPairsPerWord - 1) / kPairsPerWord;
+  const typename S::Pair* s = soft + static_cast<size_t>(cw) * T2;
+  int32_t* d = dec + static_cast<size_t>(cw) * W * 64;
+
+  M0 pm_lo, pm_hi;
+  bool da0 = false;
+  k3_word0<M0, S>(s, signs, d, min(kPairsPerWord, T2), start, lane, pm_lo,
+                  pm_hi, da0);
+  if (W == 1) {
+    if (lane == 0) last[cw] = da0 ? 1 : 0;
+    return;
+  }
+
+  // K1's tile-start layout: lane L holds new states 2v and 2v + 1,
+  // v = rotl5(L, -1); word 0 left state s in lane s & 31, half s >> 5
+  const int v = rotl5(lane, -1);
+  const int src = (2 * v) & 31;
+  const bool upper = v >> 4;
+  const M0 xl = __shfl_sync(kFull, pm_lo, src);
+  const M0 xh = __shfl_sync(kFull, pm_hi, src);
+  const M0 yl = __shfl_sync(kFull, pm_lo, src + 1);
+  const M0 yh = __shfl_sync(kFull, pm_hi, src + 1);
+  const M0 m_even = upper ? xh : xl, m_odd = upper ? yh : yl;
+
+  // By phase: the lane's butterfly signs, whether it keeps its high half
+  // after a step of that phase (its exchanged lane bit), K1's byte
+  // selectors, and the pack's bit positions or multipliers
+  int sg[kFwPhases], p1[kFwPhases], p0[kFwPhases], pat[kFwPhases];
+  unsigned m1[kFwPhases], m0[kFwPhases];
+  bool up[kFwPhases];
+  unsigned sel_lo[kFwPhases], sel_hi[kFwPhases];
+#pragma unroll
+  for (int p = 0; p < kFwPhases; ++p) {
+    sg[p] = bsigns[rotl5(lane, p)];
+    // f32: the lane's row of the branch-metric table (bit k: sign k < 0)
+    pat[p] = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      pat[p] |= ((sg[p] >> (8 * k + 7)) & 1) << k;
+    up[p] = (lane >> (4 - p)) & 1;
+    sel_lo[p] = up[p] ? 0x7676u : 0x1010u;
+    sel_hi[p] = up[p] ? 0x3232u : 0x5454u;
+    p1[p] = rotl5(lane >> 1, -p);
+    p0[p] = rotl5(lane >> 2, -p);
+    m1[p] = 1u << (31 - p1[p] - (16 >> p));
+    m0[p] = 1u << (31 - p0[p] - rotl5(8, -p) - (16 >> p));
+    // kept in registers (see K1)
+    if constexpr (kF32)
+      asm volatile("" : "+r"(m1[p]), "+r"(m0[p]), "+r"(pat[p]));
+    else
+      asm volatile("" : "+r"(sel_lo[p]), "+r"(sel_hi[p]), "+r"(p1[p]),
+                   "+r"(p0[p]));
+  }
+  const int back = rotl5(lane, -((kFwTile - 1) % kFwPhases + 1));
+  unsigned n = 0;
+  float f_lo = 0.f, f_hi = 0.f;
+  if constexpr (kF32) {
+    f_lo = m_even;
+    f_hi = m_odd;
+  } else {
+    // relative to state 0, exact: live metrics differ by at most 12 * 508
+    const M0 ref = __shfl_sync(kFull, pm_lo, 0);
+    n = (kLive + static_cast<int>(m_even - ref)) |
+        ((kLive + static_cast<int>(m_odd - ref)) << 16);
+  }
+
+  const Step* st = reinterpret_cast<const Step*>(s);
+  const int T = 2 * T2;                          // trellis steps, padded
+  Step zero{};
+  Step w = (kFwTile + lane < T) ? st[kFwTile + lane] : zero;
+  for (int k = 1; k < W; ++k) {
+    const int t0 = k * kFwTile;
+    int32_t* buf = xs[warp][k & 1];
+    if constexpr (kF32) {
+      // lane j: the branch metrics of step j for every sign pattern
+      // (integer soft: exact in any order)
+      const float4 x = w;
+      const float s01[4] = {x.x + x.y, x.y - x.x, x.x - x.y, -x.x - x.y};
+      const float s23[4] = {x.z + x.w, x.w - x.z, x.z - x.w, -x.z - x.w};
+#pragma unroll
+      for (int p = 0; p < 16; ++p)
+        bms[warp][p][lane] = s01[p & 3] + s23[p >> 2];
+    } else {
+      buf[lane] = w;
+    }
+    // also: every lane has read buffer k & 1 of tile k - 2, the table of
+    // tile k - 1 and its votes
+    __syncwarp();
+    const int t_next = t0 + kFwTile + lane;
+    w = (t_next < T) ? st[t_next] : zero;
+    if (k > 1) {
+      if constexpr (kF32) {
+        f_lo = __shfl_sync(kFull, f_lo, back);
+        f_hi = __shfl_sync(kFull, f_hi, back);
+      } else {
+        n = __shfl_sync(kFull, n, back);
+        const unsigned z = __shfl_sync(kFull, n, 0) & 0xffffu;
+        n += (kLive - z) * 0x10001u;
+      }
+    }
+    unsigned acc_a = 0, acc_b = 0, w0 = 0;
+    int4 x4;
+#pragma unroll
+    for (int j = 0; j < kFwTile; ++j) {
+      const int phase = j % kFwPhases;
+      const int prev = (j + kFwPhases - 1) % kFwPhases;
+      unsigned dec_lo, dec_hi;
+      if constexpr (kF32) {
+        const float b = bms[warp][pat[phase]][j];
+        const float send = up[prev] ? f_lo : f_hi;
+        const float recv = __shfl_xor_sync(kFull, send, 16 >> prev);
+        const float lo = up[prev] ? recv : f_lo;
+        const float hi = up[prev] ? f_hi : recv;
+        const float a0 = __fadd_rn(lo, b), c0 = __fadd_rn(hi, -b);
+        const float a1 = __fadd_rn(lo, -b), c1 = __fadd_rn(hi, b);
+        const bool d_lo = c0 > a0, d_hi = c1 > a1;   // ties keep branch 0
+        f_lo = d_lo ? c0 : a0;
+        f_hi = d_hi ? c1 : a1;
+        dec_lo = __ballot_sync(kFull, d_lo);
+        dec_hi = __ballot_sync(kFull, d_hi);
+      } else {
+        if (j % 4 == 0) x4 = *reinterpret_cast<const int4*>(buf + j);
+        const int x = j % 4 == 0 ? x4.x : j % 4 == 1 ? x4.y
+                    : j % 4 == 2 ? x4.z : x4.w;
+        const unsigned other = __shfl_xor_sync(kFull, n, 16 >> prev);
+        const unsigned lo = __byte_perm(n, other, sel_lo[prev]);
+        const unsigned hi = __byte_perm(n, other, sel_hi[prev]);
+        const unsigned b = static_cast<unsigned>(__dp4a(x, sg[phase], 0));
+        const unsigned a = lo + b * 0xffff0001u;   // (lo + b, lo - b)
+        const unsigned c = hi + b * 0x0000ffffu;   // (hi - b, hi + b)
+        bool a_hi, a_lo;                           // branch 0 kept (a >= c)
+        n = __vibmax_u16x2(a, c, &a_hi, &a_lo);
+        dec_lo = __ballot_sync(kFull, !a_lo);
+        dec_hi = __ballot_sync(kFull, !a_hi);
+      }
+      if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);
+      if constexpr (!kF32) {
+        // pair j / 2 as soon as its two steps are voted
+        if (j % 2 == 0)
+          w0 = ((lane >> 1) & 1) ? dec_hi : dec_lo;
+        else
+          k3_pack_pair((lane & 1) ? dec_hi : dec_lo, w0, j / 2, p1, p0,
+                       acc_a, acc_b);
+      }
+    }
+    __syncwarp();
+    if constexpr (kF32) k3_pack_imad(ds[warp], m1, m0, lane, acc_a, acc_b);
+    if (k == W - 1) {
+      const int pairs = T2 - k * kPairsPerWord;  // 1 .. 16
+      if (pairs < kPairsPerWord) {
+        const unsigned keep = (1u << (2 * pairs)) - 1u;
+        acc_a &= keep;
+        acc_b &= keep;
+      }
+      if (lane == 0) last[cw] = ds[warp][2 * (T2 - 1) - t0].x & 1u;
+    }
+    int32_t* row = d + k * 64;
+    row[lane] = static_cast<int32_t>(acc_a);
+    row[32 + lane] = static_cast<int32_t>(acc_b);
+  }
 }
 
 // K4: traceback over the decision words plus the bit epilogue.  Replaces
@@ -447,42 +721,116 @@ forward_acs_words(const typename S::Pair* __restrict__ soft,   // [B, T2]
 // with the unpack of viterbi_decode_pallas (bits[2t] = e[t+3] >> 1,
 // bits[2t+1] = e[t+3] & 1, trimmed to nbits) fused in.
 //
-// What bounds it on the card: a chain of T/2 dependent 4-byte loads per
-// codeword (the state selects the word entry to read) and B * nbits int32
-// stores.  Design: one thread per codeword walking the words in reverse
-// from state 0; the words were written by K3 just before and are mostly
-// still in the 50 MB L2 at the main-path shapes.
+// What bounds it on the card: the bytes are W * 256 bytes of words in and
+// nbits int32 bits out per codeword (0.0183 ms at the MSC shape, counting
+// the one word a pair step needs), but each codeword is a chain of T2
+// dependent pair steps (the state picks the word of the next step), so
+// the chain's latency is the limit.  K2's design: a warp owns kWbCw = 16
+// codewords and a block of two warps 32, so the 4428 MSC codewords are 139
+// blocks.  A tile is one word index: 64 words, 256 contiguous bytes per
+// codeword, copied by branch-free zero-filling 16-byte cp.async into
+// shared memory kWbStages - 1 tiles ahead of the walk.  Lanes l and l + 16
+// walk codeword l % 16; a pair step is one shared load at the state's word
+// (the state is a run-time index), a shift and two logic ops.  The tile's
+// 16 branches land at bits 2j, 2j + 1 of E; swapping each pair's two bits
+// makes them bits 32k - 6 .. 32k + 25 of the output, and the output word
+// k (bits 32k .. 32k + 31) is a funnel shift of this tile's and the one
+// above's; the warp transposes the words by shuffle and writes each
+// codeword's 32 bits as one 128-byte store, masked at nbits and B.
+// Pair steps >= T2 of the top word are 0 and keep the start state 0.
 //
 // Odd T (odd nbits): the last pair's second step is zero-soft padding.
 // The TPU walk starts at state 0 after that padding step, which picks the
 // intermediate state 32 over 0 whenever its metric is higher, and then
 // differs from the radix-2 reference on noise-like input.  Here the walk
-// starts at state 0 after the true last step: the last pair's branch is
-// taken as (last[b] << 1), state 0's own decision at that step.
-__global__ void __launch_bounds__(128)
+// starts at state 0 after the true last step: before the walk, the top
+// tile's word of state 0 gets (last[b] << 1) as the branch of pair T2 - 1,
+// state 0's own decision at that step (the walk is at state 0 there).
+constexpr int kWbCw = 16;                     // codewords of a warp
+constexpr int kWbWarps = 2;                   // warps of a block
+constexpr int kWbStages = 4;                  // tiles in shared memory
+constexpr int kWbRow = 64 * 4 + 16;           // bytes of a row (padded)
+constexpr int kWbTile = kWbCw * kWbRow;       // bytes of a warp's tile
+
+// Copy word index k of codewords cw0 .. cw0 + kWbCw - 1 into the shared
+// tile at `tile`, zeros for codewords >= B.  `dec` is 16-byte aligned.
+__device__ __forceinline__ void wb_issue(const int32_t* __restrict__ dec,
+                                         uint32_t tile, int cw0, int B, int W,
+                                         int k, int lane) {
+  const int c = lane & 15;                    // the lane's 16 bytes of a row
+  const int r0 = lane >> 4;
+#pragma unroll
+  for (int i = 0; i < kWbCw / 2; ++i) {       // a warp's copy: two rows
+    const int r = 2 * i + r0;
+    const bool valid = cw0 + r < B;
+    const int32_t* src =
+        valid ? dec + (static_cast<size_t>(cw0 + r) * W + k) * 64 + c * 4
+              : dec;
+    cp_async_zfill<16>(tile + r * kWbRow + c * 16, src, valid);
+  }
+}
+
+__global__ void __launch_bounds__(32 * kWbWarps)
 traceback_words(const int32_t* __restrict__ dec,   // [B, W, 64]
                 const int32_t* __restrict__ last,  // [B]
                 int32_t* __restrict__ bits,        // [B, nbits]
                 int B, int T2, int nbits) {
-  const int cw = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cw >= B) return;
+  __shared__ __align__(16) char tiles[kWbWarps][kWbStages][kWbTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cw0 = (blockIdx.x * kWbWarps + warp) * kWbCw;
+  if (cw0 >= B) return;                       // whole warps
   const int W = (T2 + kPairsPerWord - 1) / kPairsPerWord;
-  const int32_t* d = dec + static_cast<size_t>(cw) * W * 64;
-  int32_t* out = bits + static_cast<size_t>(cw) * nbits;
+  const int top = W - 1;
+  const uint32_t base =
+      static_cast<uint32_t>(__cvta_generic_to_shared(tiles[warp]));
+#pragma unroll 1
+  for (int s = 0; s < kWbStages - 1; ++s) {
+    if (top - s >= 0)
+      wb_issue(dec, base + (top - s) % kWbStages * kWbTile, cw0, B, W,
+               top - s, lane);
+    cp_async_commit();                        // one group a tile, maybe empty
+  }
+  const int r = lane % kWbCw;
   const bool odd = 2 * T2 != nbits + 6;
-  int state = 0;
-  for (int tau = T2 - 1; tau >= 0; --tau) {
-    int e;
-    if (odd && tau == T2 - 1) {
-      e = last[cw] << 1;
-    } else {
-      const int word = d[(tau / kPairsPerWord) * 64 + state];
-      e = (word >> (2 * (tau & (kPairsPerWord - 1)))) & 3;
+  const unsigned lastv = (odd && cw0 + r < B) ? last[cw0 + r] & 1u : 0u;
+  unsigned state = 0, carry = 0;
+  for (int k = top; k >= 0; --k) {
+    const int kn = k - (kWbStages - 1);       // its buffer was read at k + 1
+    if (kn >= 0)
+      wb_issue(dec, base + kn % kWbStages * kWbTile, cw0, B, W, kn, lane);
+    cp_async_commit();
+    cp_async_wait<kWbStages - 1>();           // tile k has landed
+    __syncwarp();
+    char* row = tiles[warp][k % kWbStages] + r * kWbRow;
+    if (odd && k == top) {
+      if (lane < kWbCw) {
+        const int slot = 2 * ((T2 - 1) % kPairsPerWord);
+        unsigned* w0 = reinterpret_cast<unsigned*>(row);
+        *w0 = (*w0 & ~(3u << slot)) | (lastv << (slot + 1));
+      }
+      __syncwarp();
     }
-    const int b = 2 * (tau - 3);
-    if (b >= 0 && b < nbits) out[b] = e >> 1;
-    if (b >= 0 && b + 1 < nbits) out[b + 1] = e & 1;
-    state = (state >> 2) | (e << 4);
+    unsigned E = 0;
+#pragma unroll
+    for (int j = kPairsPerWord - 1; j >= 0; --j) {
+      const unsigned word = *reinterpret_cast<const unsigned*>(row + 4 * state);
+      const unsigned e = (word >> (2 * j)) & 3u;
+      E |= e << (2 * j);
+      state = (state >> 2) | (e << 4);
+    }
+    __syncwarp();                             // the buffer may be refilled
+    const unsigned m = ((E >> 1) & 0x55555555u) | ((E & 0x55555555u) << 1);
+    const unsigned out = __funnelshift_r(m, carry, 6);
+    carry = m;
+    const int t = k * 32 + lane;
+#pragma unroll
+    for (int i = 0; i < kWbCw; ++i) {
+      const unsigned o = __shfl_sync(kFull, out, i);
+      if (cw0 + i < B && t < nbits)
+        bits[static_cast<size_t>(cw0 + i) * nbits + t] =
+            static_cast<int32_t>((o >> lane) & 1u);
+    }
   }
 }
 
@@ -514,31 +862,33 @@ int dabjax_viterbi_traceback(const void* dec, void* bits, int B, int T,
   return static_cast<int>(cudaGetLastError());
 }
 
-// variant 0: int8 stream, int32 metrics (i8mxu); 1: int8 stream, float
-// metrics (i8); 2: float stream, float metrics (f32)
+// variant 0: int8 stream, int32 metrics in word 0 (i8mxu); 1: int8
+// stream, float metrics in word 0 (i8); 2: float stream, float metrics
+// (f32).  `bsigns`: K1's butterfly signs, [32] packed int8x4.
 int dabjax_viterbi_forward_words(const void* soft, const void* signs,
-                                 void* dec, void* last, int B, int T2,
-                                 int variant, void* stream) {
-  const int threads = 128;                       // 4 codewords per block
-  const int blocks = (B + 3) / 4;
+                                 const void* bsigns, void* dec, void* last,
+                                 int B, int T2, int variant, void* stream) {
+  const int threads = 32 * kWdWarps;             // a warp a codeword
+  const int blocks = (B + kWdWarps - 1) / kWdWarps;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* bs = static_cast<const int32_t*>(bsigns);
   int32_t* d = static_cast<int32_t*>(dec);
   int32_t* l = static_cast<int32_t*>(last);
   switch (variant) {
     case 0:
-      forward_acs_words<int, StreamI8><<<blocks, threads, 0, st>>>(
+      forward_acs_words<int, StreamI8, false, 9><<<blocks, threads, 0, st>>>(
           static_cast<const int2*>(soft), static_cast<const int2*>(signs),
-          d, l, B, T2, -(1 << 29));
+          bs, d, l, B, T2, -(1 << 29));
       break;
     case 1:
-      forward_acs_words<float, StreamI8><<<blocks, threads, 0, st>>>(
+      forward_acs_words<float, StreamI8, false, 9><<<blocks, threads, 0, st>>>(
           static_cast<const int2*>(soft), static_cast<const int2*>(signs),
-          d, l, B, T2, -1e9f);
+          bs, d, l, B, T2, -1e9f);
       break;
     case 2:
-      forward_acs_words<float, StreamF32><<<blocks, threads, 0, st>>>(
+      forward_acs_words<float, StreamF32, true, 6><<<blocks, threads, 0, st>>>(
           static_cast<const Float8*>(soft),
-          static_cast<const Float8*>(signs), d, l, B, T2, -1e9f);
+          static_cast<const Float8*>(signs), bs, d, l, B, T2, -1e9f);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -549,9 +899,12 @@ int dabjax_viterbi_forward_words(const void* soft, const void* signs,
 int dabjax_viterbi_traceback_words(const void* dec, const void* last,
                                    void* bits, int B, int T2, int nbits,
                                    void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  traceback_words<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (reinterpret_cast<uintptr_t>(dec) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  constexpr int kPerBlock = kWbCw * kWbWarps;    // codewords of a block
+  const int blocks = (B + kPerBlock - 1) / kPerBlock;
+  traceback_words<<<blocks, 32 * kWbWarps, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(dec), static_cast<const int32_t*>(last),
       static_cast<int32_t*>(bits), B, T2, nbits);
   return static_cast<int>(cudaGetLastError());

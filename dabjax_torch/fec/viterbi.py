@@ -16,6 +16,9 @@ the decode in two, as ``dabjax.fec.viterbi_pallas`` does for its stage
 timing, in the layout of ``viterbi_cuda.SOFT_FMT``.  The radix-4 word
 layout's plain versions are :func:`viterbi_forward_words_torch` and
 :func:`viterbi_traceback_words_torch`.
+
+The ``*_lanes_torch`` functions model the CUDA kernels' own arithmetic
+lane by lane (K1, K2, and the word kernels K3, K4) for the tests.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ __all__ = ["viterbi_decode", "viterbi_decode_torch", "viterbi_forward_torch",
            "viterbi_traceback_words", "viterbi_forward_words_torch",
            "viterbi_traceback_words_torch", "viterbi_decode_np",
            "branch_signs", "viterbi_forward_lanes_torch",
-           "viterbi_traceback_lanes_torch"]
+           "viterbi_traceback_lanes_torch",
+           "viterbi_forward_words_lanes_torch",
+           "viterbi_traceback_words_lanes_torch"]
 
 #: trellis steps whose branch metrics are formed in one matmul
 _CHUNK = 64
@@ -145,6 +150,66 @@ def viterbi_traceback_torch(dec: torch.Tensor, nbits: int) -> torch.Tensor:
 _M32 = 0xFFFFFFFF
 
 
+def _u16_tile(n: torch.Tensor, x: torch.Tensor, lane: torch.Tensor,
+              sg: torch.Tensor):
+    """One tile of K1's in-place core: ``n`` int64 [B, 32], each lane's
+    two unsigned 16-bit metrics in one 32-bit word (new states 2v, 2v + 1
+    of v = rotl5(lane, -1)); ``x`` int64 [B, TILE, 4] soft (zeros past
+    the end) -> (``n``, votes int64 [B, TILE, 2]: each step's two ballot
+    words).  Every product and sum wraps at 32 bits as the card's does;
+    the halves are compared unsigned, ``>=`` keeping branch 0."""
+    vc = viterbi_cuda
+    B = n.shape[0]
+    acc = torch.zeros((2, B, 32), dtype=torch.int64, device=n.device)
+    for j in range(vc.TILE):
+        phase, prev = j % vc.PHASES, (j - 1) % vc.PHASES
+        sel = ((lane >> (4 - prev)) & 1).bool()
+        other = n[:, lane ^ (16 >> prev)]
+        lo = torch.where(sel, other >> 16, n & 0xFFFF)
+        hi = torch.where(sel, n >> 16, other & 0xFFFF)
+        # [B, 32]; no matmul: the card has none for int64
+        b = (x[:, j, None] * sg[vc.rotl5(lane, phase)]).sum(-1)
+        a = (lo * 0x10001 + b * -65535) & _M32   # (lo + b, lo - b)
+        c = (hi * 0x10001 + b * 65535) & _M32    # (hi - b, hi + b)
+        halves = []
+        for h, shift in enumerate((0, 16)):
+            a_h, c_h = (a >> shift) & 0xFFFF, (c >> shift) & 0xFFFF
+            keep0 = a_h >= c_h
+            acc[h] |= (~keep0).to(torch.int64) << j
+            halves.append(torch.where(keep0, a_h, c_h) << shift)
+        n = halves[0] | halves[1]
+    return n, _ballots(acc, lane)
+
+
+def _ballots(acc: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """Each lane's decisions of a tile, ``acc`` [2, B, 32] with step j at
+    bit j, -> the steps' ballot words int64 [B, TILE, 2] (a 32 x 32 bit
+    transpose: step j's word has lane i's decision at bit i)."""
+    steps = torch.arange(viterbi_cuda.TILE, device=acc.device)
+    words = (((acc[..., None] >> steps) & 1) << lane[:, None]).sum(dim=2)
+    return words.permute(1, 2, 0)
+
+
+def _tile_start(n: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """K1 between tiles: the shuffle that undoes the lane rotation, then
+    state 0 put back at ``METRIC_LIVE``."""
+    vc = viterbi_cuda
+    n = n[:, vc.rotl5(lane, -((vc.TILE - 1) % vc.PHASES + 1))]
+    return (n + (vc.METRIC_LIVE - (n[:, :1] & 0xFFFF)) * 0x10001) & _M32
+
+
+def _tile_soft(x: torch.Tensor, t0: int) -> torch.Tensor:
+    """Steps t0 .. t0 + TILE - 1 of ``x`` [B, T, 4], zeros past T."""
+    xt = x[:, t0: t0 + viterbi_cuda.TILE]
+    pad = viterbi_cuda.TILE - xt.shape[1]
+    return torch.cat([xt, xt.new_zeros((xt.shape[0], pad, 4))], 1) if pad \
+        else xt
+
+
+def _signed32(w: torch.Tensor) -> torch.Tensor:
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
 def viterbi_forward_lanes_torch(soft: torch.Tensor) -> torch.Tensor:
     """K1's own arithmetic, lane by lane: ``soft`` int8 [B, T, 4] ->
     decision words int32 [B, T, 2] in K1's layout
@@ -152,14 +217,12 @@ def viterbi_forward_lanes_torch(soft: torch.Tensor) -> torch.Tensor:
 
     A model of the kernel for the tests, not a fast path: 32 lanes, each
     holding two unsigned 16-bit path metrics packed in one 32-bit word
-    (every product and sum wraps at 32 bits as the card's does; the
-    halves are compared unsigned, ``>=`` keeping branch 0), the in-place
-    butterfly with one exchange a step, the start values
-    ``METRIC_LIVE`` / ``METRIC_DEAD``, and once a tile of ``TILE`` steps
-    the shuffle that undoes the lane rotation and the renormalisation
-    that puts state 0 back at ``METRIC_LIVE``.  Its decisions equal
-    :func:`viterbi_forward_torch`'s (int32 metrics) bit for bit as long
-    as no half leaves 0 .. 65535."""
+    (:func:`_u16_tile`), the in-place butterfly with one exchange a step,
+    the start values ``METRIC_LIVE`` / ``METRIC_DEAD``, and once a tile of
+    ``TILE`` steps the shuffle that undoes the lane rotation and the
+    renormalisation that puts state 0 back at ``METRIC_LIVE``.  Its
+    decisions equal :func:`viterbi_forward_torch`'s (int32 metrics) bit
+    for bit as long as no half leaves 0 .. 65535."""
     vc = viterbi_cuda
     B, T, _ = soft.shape
     dev = soft.device
@@ -170,35 +233,12 @@ def viterbi_forward_lanes_torch(soft: torch.Tensor) -> torch.Tensor:
     n = torch.full((B, 32), dead * 0x10001, dtype=torch.int64, device=dev)
     n[:, 0] = live | (dead << 16)
     out = torch.zeros((B, T, 2), dtype=torch.int64, device=dev)
-    back = vc.rotl5(lane, -((vc.TILE - 1) % vc.PHASES + 1))
     for t0 in range(0, T, vc.TILE):
         if t0:
-            n = n[:, back]
-            n = (n + (live - (n[:, :1] & 0xFFFF)) * 0x10001) & _M32
-        acc = torch.zeros((2, B, 32), dtype=torch.int64, device=dev)
-        for j in range(min(vc.TILE, T - t0)):
-            phase, prev = j % vc.PHASES, (j - 1) % vc.PHASES
-            sel = ((lane >> (4 - prev)) & 1).bool()
-            other = n[:, lane ^ (16 >> prev)]
-            lo = torch.where(sel, other >> 16, n & 0xFFFF)
-            hi = torch.where(sel, n >> 16, other & 0xFFFF)
-            # [B, 32]; no matmul: the card has none for int64
-            b = (x[:, t0 + j, None] * sg[vc.rotl5(lane, phase)]).sum(-1)
-            a = (lo * 0x10001 + b * -65535) & _M32   # (lo + b, lo - b)
-            c = (hi * 0x10001 + b * 65535) & _M32    # (hi - b, hi + b)
-            halves = []
-            for h, shift in enumerate((0, 16)):
-                a_h, c_h = (a >> shift) & 0xFFFF, (c >> shift) & 0xFFFF
-                keep0 = a_h >= c_h
-                acc[h] |= (~keep0).to(torch.int64) << j
-                halves.append(torch.where(keep0, a_h, c_h) << shift)
-            n = halves[0] | halves[1]
-        # the warp's 32 x 32 bit transpose: lane j gets step j's words
-        steps = torch.arange(vc.TILE, device=dev)
-        words = (((acc[..., None] >> steps) & 1) << lane[:, None]).sum(dim=2)
-        nt = min(vc.TILE, T - t0)
-        out[:, t0: t0 + nt] = words.permute(1, 2, 0)[:, :nt]
-    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+            n = _tile_start(n, lane)
+        n, votes = _u16_tile(n, _tile_soft(x, t0), lane, sg)
+        out[:, t0: t0 + vc.TILE] = votes[:, : T - t0]
+    return _signed32(out)
 
 
 def viterbi_traceback_lanes_torch(dec: torch.Tensor,
@@ -255,37 +295,54 @@ def viterbi_forward_words_torch(soft: torch.Tensor, nbits: int, fmt: str):
     the step count is odd."""
     x = viterbi_cuda.pair_soft(soft, nbits, fmt)        # [B, T2, 8]
     B, T2, _ = x.shape
+    pm = _radix4_start(x, fmt)
+    words = torch.zeros((B, -(-T2 // 16), 64), dtype=torch.int64,
+                        device=x.device)
+    for c0 in range(0, T2, _CHUNK):
+        pm, e, da = _radix4_steps(pm, x[:, c0: c0 + _CHUNK])
+        for j in range(e.shape[1]):
+            tau = c0 + j
+            words[:, tau // 16] |= e[:, j] << (2 * (tau % 16))
+    return _signed32(words).permute(1, 2, 0), da[:, 0].to(torch.int32)
+
+
+def _radix4_start(x: torch.Tensor, fmt: str) -> torch.Tensor:
+    """The word formats' start metrics [B, 64]: state 0 at 0, the others
+    at -2^29 (int32, "i8mxu") or -1e9 (float32, "i8", "f32")."""
     if fmt == "i8mxu":
         mtype, start = torch.int32, -(1 << 29)
     else:
         mtype, start = torch.float32, -1e9
-    dev = x.device
+    pm = torch.full((x.shape[0], 64), start, dtype=mtype, device=x.device)
+    pm[:, 0] = 0
+    return pm
+
+
+def _radix4_steps(pm: torch.Tensor, x: torch.Tensor):
+    """Radix-4 pair steps of dabjax's ``_forward_kernel`` from metrics
+    ``pm`` [B, 64] (int32, or float32 with one rounded add a candidate)
+    over pair soft ``x`` [B, n, 8] -> (pm, e int64 [B, n, 64], the
+    inner decision ``da`` bool [B, 64] of the last step)."""
+    mtype = pm.dtype
     # integer soft times +-1: the float32 products and sums are exact
     S4 = torch.as_tensor(viterbi_cuda.radix4_signs().T.astype(np.float32),
-                         device=dev)                     # [8, 256]
-    pm = torch.full((B, 64), start, dtype=mtype, device=dev)
-    pm[:, 0] = 0
-    words = torch.zeros((B, -(-T2 // 16), 64), dtype=torch.int64, device=dev)
-    for c0 in range(0, T2, _CHUNK):
-        bms = (x[:, c0: c0 + _CHUNK].to(torch.float32) @ S4).to(mtype)
-        for j in range(bms.shape[1]):
-            tau = c0 + j
-            # row e*64 + n has predecessor p with 4p + (n & 3) == e*64 + n
-            m = pm.repeat_interleave(4, dim=1) + bms[:, j]  # [B, 256]
-            m00, m01 = m[:, 0:64], m[:, 64:128]
-            m10, m11 = m[:, 128:192], m[:, 192:256]
-            da = m10 > m00
-            a = torch.where(da, m10, m00)
-            db = m11 > m01
-            b = torch.where(db, m11, m01)
-            d1 = b > a
-            pm = torch.where(d1, b, a)
-            e = ((torch.where(d1, db, da).to(torch.int64) << 1)
-                 | d1.to(torch.int64))
-            words[:, tau // 16] |= e << (2 * (tau % 16))
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return (words.to(torch.int32).permute(1, 2, 0),
-            da[:, 0].to(torch.int32))
+                         device=x.device)                # [8, 256]
+    bms = (x.to(torch.float32) @ S4).to(mtype)
+    es = []
+    for j in range(bms.shape[1]):
+        # row e*64 + n has predecessor p with 4p + (n & 3) == e*64 + n
+        m = pm.repeat_interleave(4, dim=1) + bms[:, j]      # [B, 256]
+        m00, m01 = m[:, 0:64], m[:, 64:128]
+        m10, m11 = m[:, 128:192], m[:, 192:256]
+        da = m10 > m00
+        a = torch.where(da, m10, m00)
+        db = m11 > m01
+        b = torch.where(db, m11, m01)
+        d1 = b > a
+        pm = torch.where(d1, b, a)
+        es.append((torch.where(d1, db, da).to(torch.int64) << 1)
+                  | d1.to(torch.int64))
+    return pm, torch.stack(es, 1), da
 
 
 def viterbi_traceback_words_torch(words: torch.Tensor, last: torch.Tensor,
@@ -318,6 +375,202 @@ def viterbi_traceback_words_torch(words: torch.Tensor, last: torch.Tensor,
     e3 = e_seq[:, 3: 3 + n_pairs]
     bits = torch.stack([e3 >> 1, e3 & 1], dim=-1).reshape(B, 2 * n_pairs)
     return bits[:, :nbits].to(torch.int32)
+
+
+def _f32_tile(f: torch.Tensor, x: torch.Tensor, lane: torch.Tensor,
+              sg: torch.Tensor):
+    """One tile of K3's float core: ``f`` float32 [2, B, 32], each lane's
+    metrics of new states 2v and 2v + 1 (v = rotl5(lane, -1)); ``x``
+    float32 [B, TILE, 4]; ``sg`` the butterfly signs [32, 4] -> (``f``,
+    votes int64 [B, TILE, 2]).  As :func:`_u16_tile`, with one float a
+    metric: the lane sends the metric that leaves (its low one when its
+    exchanged lane bit is 1) and keeps the one that stays; a step's
+    branch metric is read from a table of its 16 signed soft sums; every
+    add is one IEEE float32 add."""
+    vc = viterbi_cuda
+    B = f.shape[1]
+    acc = torch.zeros((2, B, 32), dtype=torch.int64, device=f.device)
+    # each step's 16 signed sums of its soft values (pattern bit k: sign k
+    # negative), and the lane's pattern by phase
+    s01 = torch.stack([x[..., 0] + x[..., 1], x[..., 1] - x[..., 0],
+                       x[..., 0] - x[..., 1], -x[..., 0] - x[..., 1]], -1)
+    s23 = torch.stack([x[..., 2] + x[..., 3], x[..., 3] - x[..., 2],
+                       x[..., 2] - x[..., 3], -x[..., 2] - x[..., 3]], -1)
+    table = (s01[..., None, :] + s23[..., :, None]).reshape(B, vc.TILE, 16)
+    bits = (sg < 0).to(torch.int64) << torch.arange(4, device=f.device)
+    pat = [bits[vc.rotl5(lane, ph)].sum(-1) for ph in range(vc.PHASES)]
+    for j in range(vc.TILE):
+        phase, prev = j % vc.PHASES, (j - 1) % vc.PHASES
+        up = ((lane >> (4 - prev)) & 1).bool()
+        recv = torch.where(up, f[0], f[1])[:, lane ^ (16 >> prev)]
+        lo = torch.where(up, recv, f[0])
+        hi = torch.where(up, f[1], recv)
+        b = table[:, j, pat[phase]]
+        new = []
+        for h, sign in enumerate((1.0, -1.0)):
+            a, c = lo + sign * b, hi - sign * b    # branch 0, branch 1
+            d = c > a
+            acc[h] |= d.to(torch.int64) << j
+            new.append(torch.where(d, c, a))
+        f = torch.stack(new)
+    return f, _ballots(acc, lane)
+
+
+def _rotr32(x: torch.Tensor, k) -> torch.Tensor:
+    """32-bit words ``x`` (int64 holding 0 .. 2^32 - 1) rotated right by
+    ``k`` mod 32 (the card's funnel shift)."""
+    k = k % 32 if isinstance(k, int) else torch.remainder(k, 32)
+    return ((x >> k) | (x << (32 - k))) & _M32
+
+
+def _pack_tile(votes: torch.Tensor, lane: torch.Tensor,
+               imad: bool = False) -> torch.Tensor:
+    """K3's word pack: the ballot words of one tile int64 [B, TILE, 2]
+    (K1's rotated layout) -> the tile's radix-4 words int64 [B, 64].
+
+    Lane l builds the words of states n = l and n = l + 32.  Pair j's d1
+    is n's decision at step 2j + 1 (word n & 1, bit rotr5(n >> 1, ph1));
+    its d0 is the decision of q = (n >> 1) | (d1 << 5) at step 2j (word
+    (n >> 1) & 1, bit rotr5(n >> 2, ph0) + (d1 << (4 - ph0)): the bit d1
+    sets in q >> 1 lands at a constant place of the rotation).  The
+    kernel's two forms: each bit fetched by a rotation that puts it at
+    its place in the word (2j for d1, 2j + 1 for d0) and merged under a
+    mask (the u16 core's), or (``imad``, the float core's) a multiply by
+    a power of 2 that puts the pair's highest candidate bit at bit 31, a
+    multiplier chosen by d1 that moves the wanted one there, and the
+    high word of a doubling that takes it."""
+    vc = viterbi_cuda
+    acc = [torch.zeros((votes.shape[0], 32), dtype=torch.int64,
+                       device=votes.device) for _ in range(2)]
+    p1 = [vc.rotl5(lane >> 1, -ph) for ph in range(vc.PHASES)]
+    p0 = [vc.rotl5(lane >> 2, -ph) for ph in range(vc.PHASES)]
+    for jp in range(vc.TILE // 2):
+        ph1, ph0 = (2 * jp + 1) % vc.PHASES, (2 * jp) % vc.PHASES
+        c, s1, s0 = 4 - ph0, 16 >> ph1, vc.rotl5(8, -ph0)
+        w1 = votes[:, 2 * jp + 1, lane & 1]                  # [B, 32]
+        w0 = votes[:, 2 * jp, (lane >> 1) & 1]
+        if imad:
+            def top(x):                        # the high word of x * 2
+                return (x & _M32) >> 31
+            t1 = w1 * (1 << (31 - p1[ph1] - s1)) & _M32
+            d1 = [top(t1 << s1), top(t1)]
+            t0 = w0 * (1 << (31 - p0[ph0] - s0 - (1 << c))) & _M32
+            mult = [(1 << s0 + (1 << c)) - d1[0] * ((1 << s0 + (1 << c))
+                                                    - (1 << s0)),
+                    (1 << (1 << c)) - d1[1] * ((1 << (1 << c)) - 1)]
+            for h in (0, 1):
+                acc[h] += (d1[h] << 2 * jp) + (top(t0 * mult[h]) << 2 * jp + 1)
+            continue
+        ta = _rotr32(w1, p1[ph1] - 2 * jp)
+        for h, t, extra in ((0, ta, 0), (1, _rotr32(ta, s1), s0)):
+            d1c = ((t >> (2 * jp - c)) if 2 * jp >= c
+                   else (t << (c - 2 * jp))) & (1 << c)
+            y = _rotr32(w0, d1c + p0[ph0] + extra - (2 * jp + 1))
+            acc[h] |= (t & (1 << 2 * jp)) | (y & (2 << 2 * jp))
+    return torch.cat(acc, dim=1)
+
+
+def viterbi_forward_words_lanes_torch(soft: torch.Tensor, nbits: int,
+                                      fmt: str):
+    """K3's own arithmetic, lane by lane: ``soft`` (..., 4*(nbits+6)) ->
+    (words int32 [W, 64, B], last int32 [B]) of a word format, as
+    :func:`viterbi_forward_words_torch` gives them.
+
+    A model of the kernel for the tests.  Word 0 (pair steps 0-15) is the
+    radix-4 recursion with the format's metrics (int32 from -2^29, or
+    float32 from -1e9 with a rounded add).  From tile 1 on, a tile of
+    TILE = 32 trellis steps is one word: K1's radix-2 core (u16x2 metrics,
+    :func:`_u16_tile`, under "i8mxu" and "i8"; float32 metrics,
+    :func:`_f32_tile`, under "f32"), started from word 0's metrics in
+    K1's tile-start layout (relative to state 0 and put at
+    ``METRIC_LIVE`` for u16), then :func:`_pack_tile` turns the votes into
+    the tile's words (the u16 core's form, or under "f32" the float
+    core's), pair steps >= T2 masked to 0.  A radix-4 decision
+    is two radix-2 ones with the same strict ``>``, so once every state
+    is live (after pair step 2, inside word 0) and the metrics are exact
+    integers, the words are dabjax's.  ``last`` is state 0's vote at
+    trellis step 2(T2-1), or word 0's ``da``."""
+    vc = viterbi_cuda
+    x = vc.pair_soft(soft, nbits, fmt)                  # [B, T2, 8]
+    B, T2, _ = x.shape
+    W = -(-T2 // 16)
+    dev = x.device
+    lane = torch.arange(32, device=dev)
+    pm, e, da = _radix4_steps(_radix4_start(x, fmt), x[:, :16])
+    words = torch.zeros((B, W, 64), dtype=torch.int64, device=dev)
+    words[:, 0] = (e << 2 * torch.arange(e.shape[1], device=dev)[:, None]
+                   ).sum(1)
+    last = da[:, 0].to(torch.int64)
+    v = vc.rotl5(lane, -1)
+    pair = torch.stack([pm[:, 2 * v], pm[:, 2 * v + 1]])   # [2, B, 32]
+    steps = x.reshape(B, 2 * T2, 4)
+    if fmt == "f32":
+        f, sg = pair, torch.as_tensor(
+            vc.butterfly_signs().astype(np.float32), device=dev)
+    else:
+        rel = (pair - pm[:, :1]).to(torch.int64) + vc.METRIC_LIVE
+        n, sg = rel[0] | (rel[1] << 16), torch.as_tensor(
+            vc.butterfly_signs().astype(np.int64), device=dev)
+        steps = steps.to(torch.int64)
+    for k in range(1, W):
+        t0 = k * vc.TILE
+        xt = _tile_soft(steps, t0)
+        if fmt == "f32":
+            if k > 1:
+                f = f[:, :, vc.rotl5(lane, -((vc.TILE - 1) % vc.PHASES + 1))]
+            f, votes = _f32_tile(f, xt, lane, sg)
+        else:
+            if k > 1:
+                n = _tile_start(n, lane)
+            n, votes = _u16_tile(n, xt, lane, sg)
+        npairs = min(16, T2 - 16 * k)
+        words[:, k] = (_pack_tile(votes, lane, imad=fmt == "f32")
+                       & ((1 << 2 * npairs) - 1))
+        if k == W - 1:
+            last = votes[:, 2 * (T2 - 1) - t0, 0] & 1
+    return _signed32(words).permute(1, 2, 0), last.to(torch.int32)
+
+
+def viterbi_traceback_words_lanes_torch(words: torch.Tensor,
+                                        last: torch.Tensor,
+                                        nbits: int) -> torch.Tensor:
+    """K4's own walk: (words [W, 64, B], last [B]) -> bits int32
+    [B, nbits], as :func:`viterbi_traceback_words_torch` gives them.
+
+    A model of the kernel for the tests.  With an odd step count the top
+    tile's word of state 0 first gets ``last << 1`` as the branch of pair
+    T2 - 1 (the walk is at state 0 there: the pairs above it are zero
+    padding).  A tile is one word index, walked from pair 15 down to 0;
+    pair j's branch e lands at bits 2j, 2j + 1 of the tile's E, the two
+    bits of each pair swapped once a tile (bits[2(tau-3)] = e >> 1), so
+    the tile's 32 bits are bits 32k - 6 .. 32k + 25; the output word k
+    (bits 32k .. 32k + 31) takes the upper 26 and the low 6 of the tile
+    above, carried from the step before (a funnel shift)."""
+    T = nbits + conv.K - 1
+    T2 = -(-T // 2)
+    W = -(-T2 // 16)
+    B = words.shape[2]
+    d = words.permute(2, 0, 1).to(torch.int64) & _M32   # [B, W, 64]
+    if T % 2:
+        d = d.clone()
+        slot = 2 * ((T2 - 1) % 16)
+        d[:, W - 1, 0] = ((d[:, W - 1, 0] & ~(3 << slot))
+                          | (last.to(torch.int64) << 1 + slot))
+    s = torch.zeros((B, 1), dtype=torch.int64, device=words.device)
+    carry = torch.zeros((B,), dtype=torch.int64, device=words.device)
+    out = torch.zeros((B, 32 * W), dtype=torch.int64, device=words.device)
+    shifts = torch.arange(32, device=words.device)
+    for k in range(W - 1, -1, -1):
+        E = torch.zeros_like(carry)
+        for j in range(15, -1, -1):
+            e = (d[:, k].gather(1, s) >> 2 * j) & 3
+            E |= e[:, 0] << 2 * j
+            s = (s >> 2) | (e << 4)
+        M = ((E >> 1) & 0x55555555) | ((E & 0x55555555) << 1)
+        word = ((M >> 6) | (carry << 26)) & _M32
+        out[:, 32 * k: 32 * k + 32] = (word[:, None] >> shifts) & 1
+        carry = M
+    return out[:, :nbits].to(torch.int32)
 
 
 def _device(t: torch.Tensor) -> bool:

@@ -9,8 +9,14 @@
 * radix-4 forward ACS (K3) replaces ``_forward_kernel``: pair-step soft
   [B, T2, 8] -> the radix-4 decision words of dabjax's
   ``viterbi_forward_words`` [W, 64, B] int32, plus ``last`` [B] int32;
+  its first word is dabjax's radix-4 recursion, the rest K1's radix-2
+  core with each tile's votes packed into words
+  (:func:`dabjax_torch.fec.viterbi.viterbi_forward_words_lanes_torch`
+  models it);
 * word traceback (K4) replaces ``_traceback_kernel`` and the epilogue for
-  that word layout: (words, last) -> bits int32 [B, nbits].
+  that word layout: (words, last) -> bits int32 [B, nbits], K2's tiled
+  walk over word indices
+  (:func:`dabjax_torch.fec.viterbi.viterbi_traceback_words_lanes_torch`).
 
 :data:`SOFT_FMT` picks the forward kernel of
 :func:`dabjax_torch.fec.viterbi.viterbi_forward_words` (and so of every
@@ -40,7 +46,8 @@ __all__ = ["SOFT_FMT", "FORMATS", "WORD_FORMATS", "viterbi_forward_cuda", "viter
            "step_soft", "pair_soft", "radix4_signs", "reset_launches",
            "soft_format", "pack_decisions", "unpack_decisions",
            "decision_positions", "to_int8", "TILE", "PHASES", "METRIC_LIVE",
-           "METRIC_DEAD", "rotl5", "forward_sass_counts"]
+           "METRIC_DEAD", "rotl5", "forward_sass_counts",
+           "forward_words_sass_counts"]
 
 #: the soft-input formats of dabjax's ``viterbi_pallas.SOFT_FMT``
 FORMATS = ("i8lane", "i8lane2", "i8mxu", "i8", "f32")
@@ -262,8 +269,8 @@ def viterbi_forward_words_cuda(x: torch.Tensor, fmt: str):
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.dabjax_viterbi_forward_words(
-                x.data_ptr(), signs.data_ptr(), dec.data_ptr(),
-                last.data_ptr(), B, T2, variant, stream)
+                x.data_ptr(), signs.data_ptr(), _signs(x.device).data_ptr(),
+                dec.data_ptr(), last.data_ptr(), B, T2, variant, stream)
             WORDS_FORWARD_LAUNCHES += 1
         _check(rc, "viterbi_forward_words_cuda")
     return dec.permute(1, 2, 0), last
@@ -287,6 +294,8 @@ def viterbi_traceback_words_cuda(words: torch.Tensor, last: torch.Tensor,
                          f"{last.dtype} {tuple(last.shape)} for nbits={nbits}")
     B = words.shape[2]
     dec = words.permute(2, 0, 1).contiguous()    # a view of K3's output
+    if dec.data_ptr() % 16:                      # K4 copies 16-byte chunks
+        dec = dec.clone()
     last = last.contiguous()
     bits = torch.empty((B, nbits), dtype=torch.int32, device=words.device)
     if B == 0 or nbits == 0:
@@ -302,15 +311,34 @@ def viterbi_traceback_words_cuda(words: torch.Tensor, last: torch.Tensor,
     return bits
 
 
-def forward_sass_counts() -> dict:
-    """{"total", "SHFL", "VOTE"}: SASS instructions (no NOPs) of K1 in the
-    built library; its tile of TILE steps is unrolled, so a count over
-    TILE is nearly the count a step."""
+def _sass_counts(name: str) -> dict:
+    """{"total", "SHFL", "VOTE"}: SASS instructions (no NOPs) of the
+    kernel whose mangled name matches ``name`` in the built library."""
     from dabjax_torch.tools.vpu_probe import _sass_lengths
-    name = r"forward_acsEPK"
     return {"total": _sass_lengths(name)[()],
             **{op: _sass_lengths(name, (op,)).get((), 0)
                for op in ("SHFL", "VOTE")}}
+
+
+def forward_sass_counts() -> dict:
+    """:func:`_sass_counts` of K1; its tile of TILE steps is unrolled, so
+    a count over TILE is nearly the count a step."""
+    return _sass_counts(r"forward_acsEPK")
+
+
+#: K3's template arguments by word format, as they appear in its mangled
+#: name: word 0's metric type (i: int32, f: float) and the float core
+_WORDS_KERNELS = {"i8mxu": r"forward_acs_wordsIi.*Lb0E",
+                  "i8": r"forward_acs_wordsIf.*Lb0E",
+                  "f32": r"forward_acs_wordsIf.*Lb1E"}
+
+
+def forward_words_sass_counts(fmt: str) -> dict:
+    """:func:`_sass_counts` of K3 in the word format ``fmt``.  Word 0's
+    pair step is a rolled loop; the core's tile of TILE steps and its word
+    pack are unrolled, so the counts are nearly those of one tile and one
+    word 0 step."""
+    return _sass_counts(_WORDS_KERNELS[fmt])
 
 
 def rotl5(x, k: int):

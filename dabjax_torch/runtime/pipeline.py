@@ -98,6 +98,12 @@ def full_ensemble_pipeline(p: DabParams, geoms: Sequence[SubchGeometry],
     return FullEnsemblePipeline(p, geoms, device=device)
 
 
+def _fold(*tensors: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of the first element of each tensor: an indexed
+    element, never a copy or a reduction of the tensor."""
+    return sum(t[(0,) * t.dim()].to(torch.float32) for t in tensors)
+
+
 def pipeline_stages(p: DabParams, geoms: Sequence[SubchGeometry], *,
                     device):
     """Cumulative sub-pipelines of :func:`full_ensemble_pipeline` for a
@@ -105,16 +111,20 @@ def pipeline_stages(p: DabParams, geoms: Sequence[SubchGeometry], *,
     pipeline_stages``).
 
     Returns an ordered dict of name -> fn(rows) -> 0-d float32 tensor;
-    each fn is a strict prefix of the full pipeline and folds every output
-    it computes into its value, so no stage is skipped.  Stage cost is the
-    difference of adjacent prefix times: demod | fic | deint_depunct |
-    viterbi_forward | traceback_dispersal (= full - viterbi_forward).
-    ``deint_depunct`` holds the int8 formats' clip and cast of the CIF
-    block (:func:`msc_soft`), which comes before its gathers, so
-    ``viterbi_forward`` is the forward kernel and nothing else.  The
-    ``viterbi_forward`` prefix folds in ``dec[0, 0]`` of the decision
-    layout ``viterbi_cuda.SOFT_FMT`` gives (one element keeps the forward
-    pass without a reduction over the whole plane)."""
+    each fn is a strict prefix of the full pipeline, and its value folds
+    in the first element of every tensor it computes (:func:`_fold`).
+    dabjax sums every output because XLA would otherwise drop the work
+    that feeds nothing; eager PyTorch launches every op whether or not its
+    result is read, so one element each suffices, and a full sum would add
+    a reduction the full pipeline does not run (over the int8 full-rate
+    stream, 0.27 ms on an H100, enough to make the last stage negative).
+    Stage cost is the difference of adjacent prefix times: demod | fic |
+    deint_depunct | viterbi_forward | traceback_dispersal (= full -
+    viterbi_forward).  ``deint_depunct`` holds the int8 formats' clip and
+    cast of the CIF block (:func:`msc_soft`), which comes before its
+    gathers, so ``viterbi_forward`` is the forward kernel and nothing
+    else; it folds in ``dec[0, 0, 0]`` of the decision layout
+    ``viterbi_cuda.SOFT_FMT`` gives."""
     full_pipe = FullEnsemblePipeline(p, geoms, device=device)
     proto, idx = full_pipe.proto, full_pipe.idx
     lengths, pis = subch_profile(proto.protection, proto.bitrate,
@@ -127,9 +137,7 @@ def pipeline_stages(p: DabParams, geoms: Sequence[SubchGeometry], *,
         return demod.demodulate_frames_cfo(x, fine, p)[0]
 
     def _fic(soft):
-        fibs, ok = decode_fic(soft[:, : p.fic_symbols, :], p)
-        return (fibs.sum().to(torch.float32)
-                + ok.sum().to(torch.float32))
+        return _fold(*decode_fic(soft[:, : p.fic_symbols, :], p))
 
     def _prep(soft):
         slices = msc_soft(cifs_from_soft(soft, p))[:, idx].transpose(0, 1)
@@ -137,26 +145,24 @@ def pipeline_stages(p: DabParams, geoms: Sequence[SubchGeometry], *,
                                            lengths, pis)
 
     def s_demod(rows):
-        return _front(rows).sum()
+        return _fold(_front(rows))
 
     def s_fic(rows):
         soft = _front(rows)
-        return soft.sum() + _fic(soft)
+        return _fold(soft) + _fic(soft)
 
     def s_prep(rows):
         soft = _front(rows)
-        return soft.sum() + _fic(soft) + _prep(soft).sum()
+        return _fold(soft, _prep(soft)) + _fic(soft)
 
     def s_forward(rows):
         soft = _front(rows)
         full = _prep(soft)
         dec, _ = viterbi.viterbi_forward_words(full, 24 * proto.bitrate)
-        return (soft.sum() + _fic(soft) + full.sum()
-                + dec[0, 0].to(torch.float32).sum())
+        return _fold(soft, full, dec) + _fic(soft)
 
     def s_full(rows):
-        ok, bits = full_pipe(rows)
-        return ok.sum().to(torch.float32) + bits.sum().to(torch.float32)
+        return _fold(*full_pipe(rows))
 
     stages = {"demod": s_demod, "fic": s_fic, "deint_depunct": s_prep,
               "viterbi_forward": s_forward, "full": s_full}

@@ -102,6 +102,66 @@ def test_forward_kernel_shuffles_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "saturated"])
+@pytest.mark.parametrize("nbits", [100, 101, 768, 2304])
+@pytest.mark.parametrize("B", [1, 5, 33, 384])
+def test_word_kernels_bit_exact_on_card(B, nbits, kind):
+    """K3's words and ``last`` against the plain version in each word
+    format, K4's bits against the plain traceback on them, K3 + K4
+    against the numpy decoder (up to 33 codewords), and against the
+    kernels' lane models (up to 5)."""
+    dev = _card()
+    soft = _forward_input(kind, B, nbits).reshape(B, -1).float().numpy()
+    s = torch.from_numpy(soft).to(dev)
+    want = viterbi_decode_np(soft, nbits) if B <= 33 else None
+    for fmt in vc.WORD_FORMATS:
+        words, last = vc.viterbi_forward_words_cuda(
+            vc.pair_soft(s, nbits, fmt), fmt)
+        plain_w, plain_l = viterbi.viterbi_forward_words_torch(s, nbits, fmt)
+        bits = vc.viterbi_traceback_words_cuda(words, last, nbits)
+        torch.cuda.synchronize()
+        assert torch.equal(words, plain_w) and torch.equal(last, plain_l)
+        assert torch.equal(bits, viterbi.viterbi_traceback_words_torch(
+            plain_w, plain_l, nbits))
+        if want is not None:
+            np.testing.assert_array_equal(bits.cpu().numpy(), want)
+        if B <= 5:
+            lw, ll = viterbi.viterbi_forward_words_lanes_torch(s, nbits, fmt)
+            assert torch.equal(words, lw) and torch.equal(last, ll)
+            assert torch.equal(bits, viterbi.viterbi_traceback_words_lanes_torch(
+                words, last, nbits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [101, 768])
+def test_word_kernels_beyond_int8_on_card(nbits):
+    """Soft at +-300: "f32" words equal the plain version's (no clip) and
+    its bits the numpy decoder's."""
+    dev = _card()
+    rng = np.random.default_rng(nbits)
+    soft = rng.integers(-300, 301, (6, 4 * (nbits + 6))).astype(np.float32)
+    s = torch.from_numpy(soft).to(dev)
+    words, last = vc.viterbi_forward_words_cuda(vc.pair_soft(s, nbits, "f32"),
+                                                "f32")
+    plain_w, plain_l = viterbi.viterbi_forward_words_torch(s, nbits, "f32")
+    bits = vc.viterbi_traceback_words_cuda(words, last, nbits)
+    torch.cuda.synchronize()
+    assert torch.equal(words, plain_w) and torch.equal(last, plain_l)
+    np.testing.assert_array_equal(bits.cpu().numpy(),
+                                  viterbi_decode_np(soft, nbits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["i8mxu", "i8", "f32"])
+def test_word_forward_votes_on_card(fmt):
+    """K3's core runs K1's step: its unrolled tile holds two votes a step
+    and fewer than two shuffles a step, word 0 and set-up included."""
+    _card()
+    sass = vc.forward_words_sass_counts(fmt)
+    assert 0 < sass["SHFL"] < 2 * vc.TILE and sass["VOTE"] >= 2 * vc.TILE
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1160, 16, 4480), (3, 5, 36), (1, 1, 4)])
 def test_copy_kernel_bit_exact_on_card(shape):
     dev = _card()

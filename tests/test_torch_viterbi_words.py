@@ -21,9 +21,10 @@ torch.set_num_threads(1)
 WORD_FORMATS = ("i8mxu", "i8", "f32")
 
 
-def _cases(nbits, seed, per_case=3):
+def _cases(nbits, seed, per_case=3, saturated=False):
     """Coded (noise sd 40), near-tie (sd 80) and pure-noise integer soft
-    bits in +-127, ``per_case`` codewords each, stacked."""
+    bits in +-127, ``per_case`` codewords each, stacked; with
+    ``saturated``, two more codewords, all +127 and all -127."""
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, (2 * per_case, nbits), np.uint8)
     coded = np.stack([conv.encode(b) for b in bits]).astype(np.float32)
@@ -31,8 +32,10 @@ def _cases(nbits, seed, per_case=3):
     sd = np.repeat([40.0, 80.0], per_case)[:, None]
     noisy = clean + np.round(rng.standard_normal(clean.shape) * sd)
     noise = rng.integers(-127, 128, (per_case, clean.shape[1]))
-    return np.clip(np.concatenate([noisy, noise]), -127, 127).astype(
-        np.float32)
+    rows = [noisy, noise]
+    if saturated:
+        rows.append(np.repeat([[127.0], [-127.0]], clean.shape[1], axis=1))
+    return np.clip(np.concatenate(rows), -127, 127).astype(np.float32)
 
 
 def _jax(fn, soft, nbits, fmt):
@@ -57,13 +60,30 @@ def _port_words(soft, nbits, fmt):
     words, last = viterbi.viterbi_forward_words_torch(
         torch.from_numpy(soft), nbits, fmt)
     bits = viterbi.viterbi_traceback_words_torch(words, last, nbits)
+    _hold_lane_models(soft, nbits, fmt, words, last)
     return words.numpy(), bits.numpy()
 
 
-@pytest.mark.parametrize("nbits", [100, 101, 768])
+def _hold_lane_models(soft, nbits, fmt, words, last):
+    """The models of K3 and K4 (their own arithmetic) against the plain
+    versions' words and ``last``, and K4's walk against the plain
+    traceback, on the same input."""
+    lw, ll = viterbi.viterbi_forward_words_lanes_torch(
+        torch.from_numpy(soft), nbits, fmt)
+    np.testing.assert_array_equal(lw.numpy(), words.numpy())
+    np.testing.assert_array_equal(ll.numpy(), last.numpy())
+    np.testing.assert_array_equal(
+        viterbi.viterbi_traceback_words_lanes_torch(words, last, nbits),
+        viterbi.viterbi_traceback_words_torch(words, last, nbits))
+
+
+@pytest.mark.parametrize("nbits", [100, 101, 250, 251, 768])
 @pytest.mark.parametrize("fmt", WORD_FORMATS)
 def test_words_match_dabjax(fmt, nbits):
-    soft = _cases(nbits, seed=nbits)
+    """Plain version and the kernels' lane models against dabjax's words
+    and the numpy decoder: one tile to several, odd and even nbits,
+    coded, near-tie, pure-noise and saturated codewords."""
+    soft = _cases(nbits, seed=nbits, saturated=True)
     viterbi_cuda.reset_launches()
     words, bits = _port_words(soft, nbits, fmt)
     T2 = -(-(nbits + 6) // 2)
@@ -77,9 +97,18 @@ def test_words_match_dabjax(fmt, nbits):
 
 def test_f32_does_not_saturate():
     """Soft beyond +-127: "f32" casts without clipping and "i8" clips, in
-    dabjax and in the port alike, so their words and bits differ."""
-    nbits = 100
-    rng = np.random.default_rng(300)
+    dabjax and in the port (plain version and lane models) alike, so their
+    words and bits differ."""
+    _beyond_int8(100, seed=300)
+
+
+def test_f32_does_not_saturate_over_tiles():
+    """As above over several tiles of the kernels' core, odd nbits."""
+    _beyond_int8(251, seed=551)
+
+
+def _beyond_int8(nbits, seed):
+    rng = np.random.default_rng(seed)
     soft = rng.integers(-300, 301, (4, 4 * (nbits + 6))).astype(np.float32)
     w_f32, b_f32 = _port_words(soft, nbits, "f32")
     w_i8, b_i8 = _port_words(soft, nbits, "i8")
@@ -188,3 +217,17 @@ def test_pair_soft_layout():
     assert not x[0, 53, 4:].any()
     xf = viterbi_cuda.pair_soft(soft, 101, "f32")
     assert xf.dtype == torch.float32 and float(xf.max()) == 4 * 107 - 201
+
+
+def test_word_variants_apply_to_the_kernel_source(monkeypatch):
+    """``tools.word_variants`` edits ``csrc/viterbi.cu`` by text: every
+    variant's texts are found in the source as it is, and without a card
+    its ``main()`` says so and fails."""
+    from dabjax_torch import _build
+    from dabjax_torch.tools import word_variants as wv
+    src = (_build.CSRC / "viterbi.cu").read_text()
+    for edits in wv.K3_VARIANTS.values():
+        assert wv.variant_source(src, edits) != src
+    assert wv._walk_shared(src) in src
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert wv.main() == 1
