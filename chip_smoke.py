@@ -6,7 +6,8 @@ Viterbi kernels from ``dabjax_torch/csrc`` (first use, cached by source
 hash in ``dabjax_torch/build/``) and then, in phases, stops with a
 non-zero exit at the first failure:
 
-1. the card (nvidia-smi name and power limit) and the kernel build;
+1. the card (nvidia-smi name and power limit; its SM clock and maximum
+   under a device sleep) and the kernel build;
 2. kernels: the CUDA forward ACS (K1) and traceback (K2) on coded+noise,
    near-tie, pure-noise and saturated (a codeword all +127 or all -127)
    integer soft bits at nbits 100, 101, 768, 2304 and 9216 and batches of
@@ -84,13 +85,32 @@ non-zero exit at the first failure:
     also at a tail width, N 4488, and beside ``torch.mm`` with f32 out,
     its bf16 kernel's HGMMA counted in the SASS); the copy kernel against
     ``torch.mul`` over 7 interleaved runs; then each probe's ``main()`` in
-    process, one printed line per case.
+    process, one printed line per case;
+11. mesh: the multi-device path (``dabjax_torch.parallel``) on a (2, 4)
+    mesh whose 8 positions are all the one card: the sharded step on
+    phase 4's rows (48 frames and 192 CIFs a time row, 3 subchannels a
+    position) under i8lane and i8mxu, FIC ratio 1.0, ``bits[:, 15:]``
+    equal to phase 4's bits and the payload, time row 1's 15 halo outputs
+    equal to phase 4's at the same CIFs, time row 0's equal to the decode
+    over a zero history (the int8 soft bits of its 48-frame demod counted
+    against the whole batch's), K1 + K2 (i8lane) or K3 + K4 (i8mxu) launched 10
+    times each (2 FIC and 8 MSC decodes); 10 repeats equal to the first,
+    the median wall ms gated at 20 ms; ``Receiver(mesh=...)`` against the
+    single-device ``Receiver`` on phase 5's ensemble (3 blocks of 64
+    frames, audio off), every logical frame bit-identical; every K1-K4
+    launch of the step's first runs and of the mesh ``Receiver``'s first
+    run held against its plain version at the shape the mesh gave it;
+    the device ms of the mesh MSC chain with pad rows;
+    ``dryrun_multichip``.
 
 The kernels' launch counts are reset just before phases 4-5 (K1, K2),
-phase 6 (K3, K4) and the probes' ``main()`` runs of phase 10 (the probe
-kernels, and K3 for ``vit_split2``) and read just after; each kernel
-must have run there (the plane forward once for ``vit_variants`` and
-once for ``vit_split``).
+phase 6 (K3, K4), the probes' ``main()`` runs of phase 10 (the probe
+kernels, and K3 for ``vit_split2``) and phase 11 (K1-K4; counted around
+the mesh path's own calls, not the references it is held to) and read
+just after; each kernel must have run there (the plane forward once for
+``vit_variants`` and once for ``vit_split``).  The ``launches`` of K1-K4
+in the kernels line are their main path's; ``launches_by_path`` gives
+the main path's and the mesh path's apart.
 The last two lines are a JSON object describing each kernel (with its
 bound, the least time the card could take for the same work, and the
 time of one library call computing the same function where there is
@@ -121,6 +141,19 @@ def _fail(msg: str) -> int:
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def _clocks() -> str:
+    """The card's SM clock and its maximum as nvidia-smi reads them while
+    a device sleep keeps the card busy for about a second (a card held
+    below its maximum clock runs every kernel slower)."""
+    import torch
+    torch.cuda._sleep(2_000_000_000)        # cycles: 1 s at 2 GHz
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    torch.cuda.synchronize()
+    return (smi.stdout or smi.stderr).strip()
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -449,10 +482,18 @@ def phase_words(dev, report):
 
 def _check_ensemble(ok, bits, golden):
     """Every FIB CRC passes and every logical frame equals the payload."""
+    ok = ok.cpu().numpy()
+    _check(ok.shape == (golden["n_frames"], 12) and ok.all(),
+           "FIB CRC failures")
+    return ok.size, _check_payload(bits, golden)
+
+
+def _check_payload(bits, golden):
+    """Every logical frame of ``bits`` [12, T-15, 2304] equals the
+    payload; returns T-15."""
     import numpy as np
     p, n_frames, mod = golden["p"], golden["n_frames"], golden["mod"]
-    ok, bits = ok.cpu().numpy(), bits.cpu().numpy()
-    _check(ok.shape == (n_frames, 12) and ok.all(), "FIB CRC failures")
+    bits = bits.cpu().numpy()
     n_lf = n_frames * p.cifs_per_frame - 15
     _check(bits.shape == (12, n_lf, 2304), f"bits shape {bits.shape}")
     for s in golden["services"]:
@@ -460,7 +501,7 @@ def _check_ensemble(ok, bits, golden):
             _check(np.array_equal(bits[s.subch_id, t],
                                   mod.payload_bits(s.subch_id, t)),
                    f"payload mismatch subch {s.subch_id} frame {t}")
-    return ok.size, n_lf
+    return n_lf
 
 
 def phase_pipeline(dev, report):
@@ -496,7 +537,8 @@ def phase_pipeline(dev, report):
     golden = dict(p=p, n_frames=n_frames, mod=mod, services=services,
                   geoms=geoms, rows=rows)
     pipe = full_ensemble_pipeline(p, geoms, device=dev)
-    n_fib, n_lf = _check_ensemble(*pipe(rows), golden)
+    ok, golden["bits"] = pipe(rows)
+    n_fib, n_lf = _check_ensemble(ok, golden["bits"], golden)
     # the kernels' launches in one batch (counts read as differences: the
     # main path's counts run on), and what that batch clips and casts to
     # int8: the CIF block and the FIC stream, never the MSC codewords'
@@ -1288,6 +1330,312 @@ def phase_probes(dev, report):
     report["probe_launches"] = launches
 
 
+#: phase 11's (time, subch) mesh, every position on the one card, and
+#: the gate on its sharded step's median wall ms (the step is host-bound
+#: at a few ms on one card; a path that left the card takes seconds)
+MESH_GRID, MESH_STEP_GATE_MS = (2, 4), 20.0
+
+
+def _launch_counts():
+    from dabjax_torch.fec import viterbi_cuda as vc
+    return {"k1": vc.FORWARD_LAUNCHES, "k2": vc.TRACEBACK_LAUNCHES,
+            "k3": vc.WORDS_FORWARD_LAUNCHES,
+            "k4": vc.WORDS_TRACEBACK_LAUNCHES}
+
+
+@contextlib.contextmanager
+def _counted(acc: dict):
+    """Add the Viterbi kernels' launches made in the block to ``acc``."""
+    before = _launch_counts()
+    yield
+    for k, n in _launch_counts().items():
+        acc[k] = acc.get(k, 0) + n - before[k]
+
+
+#: the Viterbi kernels' wrappers, by their launch counts' names
+_WRAPPERS = {"k1": "viterbi_forward_cuda", "k2": "viterbi_traceback_cuda",
+             "k3": "viterbi_forward_words_cuda",
+             "k4": "viterbi_traceback_words_cuda"}
+
+
+@contextlib.contextmanager
+def _recorded(calls: list):
+    """Append ``(kernel, args, output)`` to ``calls`` for every Viterbi
+    kernel launch made in the block, through its wrapper, so that each
+    can be held against its plain version at the shape the path gave
+    it."""
+    from dabjax_torch.fec import viterbi_cuda as vc
+    saved = {k: getattr(vc, name) for k, name in _WRAPPERS.items()}
+
+    def recording(k, fn):
+        def call(*args):
+            out = fn(*args)
+            calls.append((k, args, out))
+            return out
+        return call
+
+    for k, fn in saved.items():
+        setattr(vc, _WRAPPERS[k], recording(k, fn))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(vc, _WRAPPERS[k], fn)
+
+
+def _hold_plain(calls: list, what: str) -> dict:
+    """Each recorded launch against its kernel's plain version on the same
+    inputs, exactly: K1's decisions, K2's bits, K3's words and ``last``
+    (the plain forward over K3's pair-step input, its odd step's zero pad
+    included), K4's bits.  Returns the shapes held by kernel: (B, T, 4)
+    for K1, (B, T2, 8) for K3, (B, nbits) for K2 and K4."""
+    import torch
+    from dabjax_torch.fec import viterbi, viterbi_cuda as vc
+    held = {}
+    for k, args, out in calls:
+        if k == "k1":
+            (s8,) = args
+            shape, ok = tuple(s8.shape), _k1_mismatches(out, s8) == 0
+        elif k == "k2":
+            dec, nbits = args
+            shape = (dec.shape[0], nbits)
+            ok = torch.equal(out, viterbi.viterbi_traceback_torch(
+                vc.unpack_decisions(dec), nbits))
+        elif k == "k3":
+            x, fmt = args
+            B, T2, _ = x.shape
+            shape = tuple(x.shape)
+            words, last = viterbi.viterbi_forward_words_torch(
+                x.reshape(B, -1), 2 * T2 - 6, fmt)
+            ok = torch.equal(out[0], words) and torch.equal(out[1], last)
+        else:
+            words, last, nbits = args
+            shape = (words.shape[2], nbits)
+            ok = torch.equal(out, viterbi.viterbi_traceback_words_torch(
+                words, last, nbits))
+        _check(ok, f"{what}: {k.upper()} != plain at {shape}")
+        held.setdefault(k, set()).add(shape)
+    return {k: sorted(v) for k, v in sorted(held.items())}
+
+
+def _mesh_step_checks(dev, report, golden, mesh, path):
+    """Phase 11a: the sharded step on phase 4's rows under i8lane and
+    i8mxu, against phase 4's bits, the payload and the zero-history
+    decode of time row 0, then 10 repeats, each equal to the first.
+    The step's launches are added to ``path``."""
+    import statistics
+    import numpy as np
+    import torch
+    from dabjax_torch.fec import viterbi_cuda as vc
+    from dabjax_torch.msc.cif import cifs_from_soft
+    from dabjax_torch.msc.deinterleave import HISTORY
+    from dabjax_torch.msc.subchannel import decode_subchannel, msc_soft
+    from dabjax_torch.ofdm import demod
+    from dabjax_torch.parallel.sharding import (make_sharded_inputs,
+                                                sharded_ensemble_step)
+
+    p, geoms, rows = golden["p"], golden["geoms"], golden["rows"]
+    single = golden["bits"]                  # phase 4's [12, T - 15, 2304]
+    T = golden["n_frames"] * p.cifs_per_frame
+    T_row = T // MESH_GRID[0]
+    step = sharded_ensemble_step(mesh, p, geoms[0])
+    inputs = make_sharded_inputs(mesh, rows,
+                                 np.array([g.start_addr for g in geoms]))
+    runs, calls = {}, []
+    for fmt, kernels in (("i8lane", ("k1", "k2")), ("i8mxu", ("k3", "k4"))):
+        vc.SOFT_FMT = fmt
+        n = {}
+        try:
+            with _counted(n), _counted(path), _recorded(calls):
+                ratio, bits = step(*inputs)
+        finally:
+            vc.SOFT_FMT = "i8lane"
+        # 2 FIC decodes (one a time row) and 8 MSC decodes (one a position)
+        want = {k: 10 if k in kernels else 0 for k in n}
+        _check(n == want, f"mesh {fmt}: launches {n}, not {want}")
+        _check(float(ratio) == 1.0, f"mesh {fmt}: fic_ratio {float(ratio)}")
+        _check(tuple(bits.shape) == (12, T, 2304),
+               f"mesh {fmt}: bits {tuple(bits.shape)}")
+        _check(torch.equal(bits[:, HISTORY:], single),
+               f"mesh {fmt}: bits[:, 15:] differ from phase 4's")
+        _check(torch.equal(bits[:, T_row: T_row + HISTORY],
+                           single[:, T_row - HISTORY: T_row]),
+               f"mesh {fmt}: time row 1's halo outputs differ")
+        _check_payload(bits[:, HISTORY:], golden)
+        runs[fmt] = dict(launches=n, bits=bits)
+        print(f"mesh: sharded step {fmt} on {MESH_GRID}: fic_ratio 1.0, "
+              f"bits[:, 15:] equal phase 4's and the payload, time row "
+              f"1's 15 halo outputs equal; launches {n}")
+    held = _hold_plain(calls, "mesh step")
+    print(f"mesh: each of the step's {len(calls)} launches equals its "
+          f"kernel's plain version; shapes {held}")
+    del calls
+
+    # time row 0 decodes over a zero history; its int8 soft bits, from a
+    # demod of its 48 frames, against those of the whole 96-frame batch
+    first = runs["i8lane"]["bits"]
+
+    @torch.no_grad()
+    def int8_cifs(frames):
+        x = torch.view_as_complex(frames.contiguous())
+        soft = demod.demodulate_frames_cfo(
+            x, demod.fine_cfo_estimate(x, p), p)[0]
+        return msc_soft(cifs_from_soft(soft, p))
+
+    cifs = int8_cifs(rows[: rows.shape[0] // MESH_GRID[0]])
+    n_soft = int((cifs != int8_cifs(rows)[:T_row]).sum())
+    with torch.no_grad():
+        block = torch.cat([cifs.new_zeros((HISTORY, cifs.shape[1])), cifs])
+        idx = torch.tensor([[g.start_addr * 64 + j
+                             for j in range(g.length_cus * 64)]
+                            for g in geoms], device=dev)
+        warm = decode_subchannel(block[:, idx].transpose(0, 1), geoms[0])
+    _check(torch.equal(first[:, :T_row], warm),
+           "time row 0 differs from the zero-history decode")
+    print(f"mesh: time row 0's {T_row} outputs equal the decode over a "
+          f"zero history; its int8 soft bits from a 48-frame demod differ "
+          f"from the 96-frame batch's in {n_soft} of {cifs.numel()} "
+          "values")
+
+    # 10 repeats, each equal to the first; wall ms (host clock to a
+    # synchronize) and device ms (behind a device sleep)
+    wall = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _counted(path):
+            ratio, bits = step(*inputs)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        _check(float(ratio) == 1.0 and torch.equal(bits, first),
+               f"mesh: repeat {i} differs from the first run")
+    with _counted(path):
+        device_ms = _device_ms(lambda: step(*inputs), 5)
+    median = statistics.median(wall)
+    batch_ms = report["pipeline"]["seconds_per_batch"] * 1e3
+    print(f"mesh: 10 repeats equal the first; step {median:.4f} ms wall "
+          f"median (min {min(wall):.4f}, max {max(wall):.4f}), "
+          f"{device_ms:.4f} ms of device time; phase 4's batch "
+          f"{batch_ms:.4f} ms")
+    _check(median <= MESH_STEP_GATE_MS,
+           f"the sharded step takes {median:.4f} ms, above "
+           f"{MESH_STEP_GATE_MS}")
+    return dict(launches={f: r["launches"] for f, r in runs.items()},
+                held_shapes=held, soft_int8_differing=n_soft,
+                step_wall_ms=sorted(wall), step_median_ms=median,
+                step_device_ms=device_ms, phase4_batch_ms=batch_ms)
+
+
+def _mesh_receiver_checks(dev, mesh, loop_iq, path):
+    """Phase 11b: ``Receiver(mesh=...)`` against the single-device
+    ``Receiver`` on phase 5's ensemble, audio off, every logical frame
+    captured; each runs twice, in turns (single, mesh, mesh, single), and
+    the first run of each is compared, and every kernel launch of the
+    first mesh run is held against its plain version.  The mesh
+    receiver's launches are added to ``path``."""
+    import numpy as np
+    import torch
+    from dabjax_torch import testing
+    from dabjax_torch.parallel.dryrun import FrameCapture
+    from dabjax_torch.runtime.config import ReceiverConfig
+    from dabjax_torch.runtime.receiver import Receiver
+
+    cfg = ReceiverConfig(frames_per_block=64, decode_audio=False)
+    wall = {"single": [], "mesh": []}
+    frames, calls = {}, []
+    for name in ("single", "mesh", "mesh", "single"):
+        first = not wall[name]
+        store = frames.setdefault(name, {}) if first else {}
+        rx = Receiver(testing.LoopSource(loop_iq), cfg,
+                      lambda db, sid, store=store: store.setdefault(
+                          sid, FrameCapture()),
+                      mesh=mesh if name == "mesh" else None, device=dev)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _counted(path if name == "mesh" else {}), (
+                    _recorded(calls) if name == "mesh" and first
+                    else contextlib.nullcontext()):
+                m = rx.run(3)
+            wall[name].append(time.perf_counter() - t0)
+        finally:
+            rx.close()
+        _check(m.fic_ratio == 1.0, f"{name} receiver: {m.dashboard()}")
+    held = _hold_plain(calls, "mesh receiver")
+    n_held = len(calls)
+    del calls
+    single, sharded = frames["single"], frames["mesh"]
+    _check(single and set(single) == set(sharded),
+           f"subchannels {sorted(single)} vs {sorted(sharded)}")
+    n = {}
+    for k in single:
+        a, b = single[k].frames, sharded[k].frames
+        _check(len(a) == len(b) > 0 and np.array_equal(np.stack(a),
+                                                        np.stack(b)),
+               f"Receiver mesh path diverged on subch {k}")
+        n[k] = len(a)
+    print(f"mesh: Receiver(mesh={MESH_GRID}) over 3 blocks of 64 frames "
+          f"bit-identical to the single-device Receiver ({n} logical "
+          f"frames by subchannel), fic_ratio 1.0 both; wall in turns "
+          f"(single, mesh, mesh, single): mesh "
+          f"{', '.join(f'{t:.3f}' for t in wall['mesh'])} s, single "
+          f"{', '.join(f'{t:.3f}' for t in wall['single'])} s")
+    print(f"mesh: each of the mesh Receiver's {n_held} launches equals its "
+          f"kernel's plain version; shapes {held}")
+    return dict(wall_s=wall, frames_by_subch=n, held_shapes=held)
+
+
+def _mesh_pad_cost(dev, golden, mesh):
+    """Device ms of the MSC chain (``EnsembleDecoder.fused``) of phase
+    4's 12 subchannels on the mesh (padded to 16 rows, 2 a position)
+    against the first 8 (8 rows, 1 a position, the same 8 launches): 4
+    pad rows cost half the difference."""
+    import torch
+    from dabjax_torch.msc.deinterleave import HISTORY
+    from dabjax_torch.msc.subchannel import EnsembleDecoder
+    from dabjax_torch.ofdm import demod
+    from dabjax_torch.msc.cif import cifs_from_soft
+
+    p, geoms, rows = golden["p"], golden["geoms"], golden["rows"]
+    with torch.no_grad():
+        x = torch.view_as_complex(rows.contiguous())
+        soft = demod.demodulate_frames_cfo(
+            x, demod.fine_cfo_estimate(x, p), p)[0]
+        cifs = cifs_from_soft(soft, p)
+    hist = cifs.new_zeros((HISTORY, cifs.shape[1]))
+    blob = torch.empty(0, dtype=torch.uint8, device=dev)
+    ms = {}
+    for n in (12, 8):
+        dec = EnsembleDecoder(geoms[:n], p, mesh, device=dev)
+        ms[n] = _device_ms(torch.no_grad()(
+            lambda: dec.fused(hist, cifs, blob)), 5)
+    pad = (ms[12] - ms[8]) / 2
+    print(f"mesh: MSC chain of 12 subchannels (16 rows) {ms[12]:.4f} "
+          f"ms, of 8 (8 rows) {ms[8]:.4f} ms of device time: the 4 pad "
+          f"rows cost {pad:.4f} ms ({100 * pad / ms[12]:.1f} %)")
+    return dict(msc_ms_16_rows=ms[12], msc_ms_8_rows=ms[8],
+                pad_rows_ms=pad)
+
+
+def phase_mesh(dev, report, golden, loop_iq):
+    """Phase 11: the multi-device path on a (2, 4) mesh of the one card.
+    ``report["mesh"]["path_launches"]`` counts the Viterbi kernels'
+    launches of the mesh path itself (the sharded step and the mesh
+    receiver), not those of the references it is held to."""
+    from dabjax_torch.parallel.dryrun import dryrun_multichip
+    from dabjax_torch.parallel.mesh import make_mesh
+
+    n = MESH_GRID[0] * MESH_GRID[1]
+    mesh = make_mesh(n, MESH_GRID, devices=[dev] * n)
+    path = {}
+    out = _mesh_step_checks(dev, report, golden, mesh, path)
+    out["receiver"] = _mesh_receiver_checks(dev, mesh, loop_iq, path)
+    out["pad"] = _mesh_pad_cost(dev, golden, mesh)
+    out["dryrun"] = dryrun_multichip(n, devices=[dev] * n)
+    out["path_launches"] = path
+    report["mesh"] = out
+
+
 #: the card's data-sheet rates (NVIDIA H100 SXM, dense, at 700 W): device
 #: memory; FP32 outside the tensor cores, an FMA counted as 2; one op a
 #: lane and clock (half the FP32 rate: 128 lanes x 132 SMs x 1.98 GHz, the
@@ -1499,6 +1847,7 @@ def main() -> int:
         print(f"seconds: {phase.__name__} {time.perf_counter() - t:.1f}")
         return out
 
+    print(f"clocks under a device sleep (sm, max sm): {_clocks()}")
     timed(phase_kernels)
     timed(phase_words)
     vc.reset_launches()
@@ -1520,8 +1869,19 @@ def main() -> int:
     timed(phase_entry, loop_iq)
     timed(phase_trace, golden)
     timed(phase_probes)
+    torch.cuda.synchronize()
+    vc.reset_launches()
+    timed(phase_mesh, golden, loop_iq)
+    torch.cuda.synchronize()
+    mesh_launches = report["mesh"]["path_launches"]
+    _check(all(n > 0 for n in mesh_launches.values()),
+           f"the mesh path did not launch every kernel: {mesh_launches}")
+    print(f"launches on the mesh path: {mesh_launches}")
 
     kernels = _kernel_lines(report, launches)
+    for line, k in zip(kernels, ("k1", "k2", "k3", "k4")):
+        line["launches_by_path"] = {"main": launches[k],
+                                    "mesh": mesh_launches[k]}
     print(json.dumps({"kernels": kernels, "card": card,
                       "pipeline": report["pipeline"],
                       "receiver": report["receiver"],
@@ -1531,7 +1891,8 @@ def main() -> int:
                                        for f in vc.WORD_FORMATS},
                       "formats": report["formats"],
                       "stages": report["stages"],
-                      "bank": report["bank"], "trace": report["trace"]}))
+                      "bank": report["bank"], "trace": report["trace"],
+                      "mesh": report["mesh"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from dabjax_torch.constants import CU_BITS, DabParams
+from dabjax_torch.devices import on_device, resolve
 from dabjax_torch.fec import prbs, puncture, viterbi, viterbi_cuda
 from dabjax_torch.msc.deinterleave import HISTORY, time_deinterleave
 
@@ -101,17 +102,34 @@ def pack_bits_u8(bits: torch.Tensor) -> torch.Tensor:
     return (x << shifts).sum(dim=-1).to(torch.uint8)
 
 
+def _bucket_bytes(slices: torch.Tensor, g: SubchGeometry) -> torch.Tensor:
+    """[n_subch, T, length_cus*64] -> [n_subch, T-15, 3*bitrate] bit-packed
+    logical frames (uint8)."""
+    return pack_bits_u8(decode_subchannel(slices, g))
+
+
 class EnsembleDecoder(nn.Module):
     """All-services MSC decoder over shape buckets.
 
     Holds the subchannels' CU start addresses as a device buffer, so
     :meth:`fused` slices every subchannel with one gather per bucket and
-    no host sync, whatever the start addresses are."""
+    no host sync, whatever the start addresses are.
+
+    With ``mesh`` set (a :class:`dabjax_torch.parallel.mesh.Mesh` whose
+    home is ``device``), each bucket's subchannel axis is padded to a
+    multiple of the mesh size by repeating subchannel 0 and split over
+    the mesh positions in mesh order; each part decodes on its own
+    device and the results come home in order.  The per-subchannel math
+    is unchanged, so the bits equal the single-device path's."""
 
     def __init__(self, geometries: Sequence[SubchGeometry], p: DabParams,
-                 *, device):
+                 mesh=None, *, device):
         super().__init__()
         self.p = p
+        self.mesh = mesh
+        if mesh is not None and resolve(device) != resolve(mesh.home):
+            raise ValueError(f"device {device} is not the mesh's home "
+                             f"{mesh.home}")
         self.geoms = list(geometries)
         self._buckets: Dict[Tuple, List[SubchGeometry]] = {}
         for g in self.geoms:
@@ -122,42 +140,69 @@ class EnsembleDecoder(nn.Module):
             "starts", torch.tensor(starts, dtype=torch.int64,
                                    device=device), persistent=False)
 
+    def _slices(self, soft: torch.Tensor, off: int,
+                geoms: List[SubchGeometry]) -> torch.Tensor:
+        """The bucket's subchannels of the CIF block ``soft`` [T, 55296]:
+        [n, T, length_cus*64], one gather by the start buffer."""
+        n_bits = geoms[0].length_cus * CU_BITS
+        cols = torch.arange(n_bits, device=soft.device)
+        idx = self.starts[off: off + len(geoms), None] * CU_BITS + cols
+        slices = soft.index_select(1, idx.reshape(-1))
+        return slices.reshape(soft.shape[0], len(geoms),
+                              n_bits).transpose(0, 1)
+
+    def _sharded(self, slices: torch.Tensor, fn) -> torch.Tensor:
+        """``fn`` over the bucket's subchannels: on this device, or padded
+        to a multiple of the mesh size (pad rows repeat subchannel 0, and
+        the caller trims them) and split over the mesh positions."""
+        if self.mesh is None:
+            return fn(slices)
+        pad = (-slices.shape[0]) % self.mesh.size
+        if pad:
+            slices = torch.cat([slices, slices[:1].expand(pad, -1, -1)])
+        outs = []
+        for part, dev in zip(torch.tensor_split(slices, self.mesh.size),
+                             self.mesh.positions()):
+            with on_device(dev):
+                outs.append(fn(part.to(dev)))
+        home = self.mesh.home
+        return torch.cat([o.to(home) for o in outs])
+
     def decode(self, cifs: torch.Tensor) -> Dict[int, np.ndarray]:
         """``cifs`` [T, 55296] consecutive CIFs (T > 15) ->
         {subch_id: [T-15, 24*bitrate] bits}."""
         out: Dict[int, np.ndarray] = {}
-        cifs = msc_soft(cifs)
-        for key, geoms in self._buckets.items():
-            slices = torch.stack([
-                cifs[:, g.start_addr * CU_BITS:
-                     (g.start_addr + g.length_cus) * CU_BITS]
-                for g in geoms])
-            bits = decode_subchannel(slices, geoms[0]).cpu().numpy()
-            for i, g in enumerate(geoms):
+        soft = msc_soft(cifs)
+        off = 0
+        for geoms in self._buckets.values():
+            bits = self._sharded(
+                self._slices(soft, off, geoms),
+                lambda part: decode_subchannel(part, geoms[0]))
+            off += len(geoms)
+            bits = bits.cpu().numpy()
+            for i, g in enumerate(geoms):   # enumerate trims pad rows
                 out[g.subch_id] = bits[i]
         return out
 
     def fused(self, hist: torch.Tensor, cifs: torch.Tensor,
               blob: torch.Tensor) -> Tuple:
         """The whole per-block MSC chain: history concat, per-bucket
-        slicing, decode, bit-pack, merge behind ``blob``.  Returns
+        slicing, decode and bit-pack (on this device, or split over the
+        mesh), merge behind ``blob`` on this device.  Returns
         ``(merged_u8, new_hist, bucket_meta)`` with bucket_meta listing
-        (geoms, output_shape) in merge order for the host-side split."""
+        (geoms, output_shape) in merge order for the host-side split;
+        on a mesh the shapes count the pad rows, which the split trims by
+        enumerating the geometries."""
         block = torch.cat([hist, cifs], dim=0)
         soft = msc_soft(block)           # the history itself stays float
-        T = block.shape[0]
         parts = [blob]
         meta = []
         off = 0
-        for key, geoms in self._buckets.items():
-            n = len(geoms)
-            n_bits = geoms[0].length_cus * CU_BITS
-            cols = torch.arange(n_bits, device=block.device)
-            idx = self.starts[off: off + n, None] * CU_BITS + cols
-            slices = soft.index_select(1, idx.reshape(-1))
-            slices = slices.reshape(T, n, n_bits).transpose(0, 1)
-            packed = pack_bits_u8(decode_subchannel(slices, geoms[0]))
+        for geoms in self._buckets.values():
+            packed = self._sharded(
+                self._slices(soft, off, geoms),
+                lambda part: _bucket_bytes(part, geoms[0]))
             parts.append(packed.reshape(-1))
-            meta.append((geoms, (n, T - HISTORY, 3 * key[1])))
-            off += n
+            meta.append((geoms, tuple(packed.shape)))
+            off += len(geoms)
         return torch.cat(parts), block[-HISTORY:], meta

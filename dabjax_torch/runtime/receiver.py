@@ -33,6 +33,7 @@ from dabjax_torch.audio.mp4 import SuperframeDecoder
 from dabjax_torch.constants import CIF_BITS, DabParams, get_mode
 from dabjax_torch.data.pad import PadHandler
 from dabjax_torch.data.packet import PacketService
+from dabjax_torch.devices import on_device, resolve
 from dabjax_torch.fic.fib import EnsembleDB
 from dabjax_torch.runtime.audio_pool import COUNTER_FIELDS
 from dabjax_torch.runtime.config import ReceiverConfig
@@ -178,7 +179,12 @@ class BlockFn(nn.Module):
     pairs and applies the classic (x-128)/128 conversion on the device
     (bit-identical to the host conversion).  ``forward`` returns ``(cifs,
     blob)``: blob is one uint8 vector with the float32 taps as bytes, then
-    the CRC-gated FIB payloads bit-packed to 30-byte rows."""
+    the CRC-gated FIB payloads bit-packed to 30-byte rows.
+
+    The work splits into :meth:`frames`, which is per frame and runs on
+    the rows' device, and :meth:`assemble`, which joins any number of
+    contiguous frame shards into the one block's ``(cifs, blob)`` on a
+    given device; ``forward`` is the two over one shard."""
 
     def __init__(self, p: DabParams, kind: str, *, device):
         super().__init__()
@@ -189,7 +195,9 @@ class BlockFn(nn.Module):
         self.device = torch.device(device)
 
     @torch.no_grad()   # inference only: a quarter less host time a batch
-    def forward(self, rows: torch.Tensor, coarse_hz: torch.Tensor):
+    def frames(self, rows: torch.Tensor, coarse_hz: torch.Tensor) -> Dict:
+        """The per-frame outputs of one shard of frames, on its device:
+        each tensor's first axis is the shard's frames."""
         p = self.p
         if self.kind == "u8":
             x = (rows.to(torch.float32) - 128.0) * (1.0 / 128.0)
@@ -203,31 +211,68 @@ class BlockFn(nn.Module):
         cfo = fine + coarse_hz
         soft, spec0 = demod.demodulate_frames_cfo(x, cfo, p)
         prs_rows = demod.apply_cfo(x[:, : p.T_u], cfo)
-        snr = demod.snr_estimate(spec0, p)
-        coarse = demod.coarse_cfo_estimate(spec0, p)
         fibs, fic_ok = decode_fic(soft[:, : p.fic_symbols, :], p)
         t_off, t_ok = acquisition.prs_sync(prs_rows, p)
-        spectrum = torch.mean(
-            torch.abs(torch.roll(spec0, p.T_u // 2, dims=-1)), dim=0)
-        cifs = cifs_from_soft(soft, p)
-        constel = soft[0, p.fic_symbols, :]       # first data symbol
-        taps = torch.cat([t.to(torch.float32).reshape(-1) for t in (
-            snr, fine, coarse, t_off, t_ok, fic_ok, spectrum, constel)])
-        fib_bytes = pack_bits_u8(fibs[..., :240])     # [F, n_fib, 30]
-        blob = torch.cat([taps.view(torch.uint8), fib_bytes.reshape(-1)])
-        return cifs, blob
+        return {"snr": demod.snr_estimate(spec0, p), "fine": fine,
+                "coarse": demod.coarse_cfo_estimate(spec0, p),
+                "t_off": t_off, "t_ok": t_ok, "fic_ok": fic_ok,
+                "spectrum": torch.abs(torch.roll(spec0, p.T_u // 2,
+                                                 dims=-1)),
+                "constel": soft[:1, p.fic_symbols, :],  # first data symbol
+                "fib_bytes": pack_bits_u8(fibs[..., :240]),  # [F, n_fib, 30]
+                "cifs": cifs_from_soft(soft, p)}
+
+    @torch.no_grad()
+    def assemble(self, shards: List[Dict], device: torch.device):
+        """``(cifs, blob)`` of the block whose frames are the shards' in
+        order, on ``device``: each tap over all frames (the spectrum is
+        their mean, the constellation frame 0's), then the FIB bytes; the
+        CIFs in frame order."""
+        def cat(name):
+            parts = [s[name].to(device) for s in shards]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        taps = [cat(name).to(torch.float32).reshape(-1) for name in
+                ("snr", "fine", "coarse", "t_off", "t_ok", "fic_ok")]
+        taps.append(torch.mean(cat("spectrum"), dim=0))
+        taps.append(shards[0]["constel"].to(device).reshape(-1))
+        blob = torch.cat([torch.cat(taps).view(torch.uint8),
+                          cat("fib_bytes").reshape(-1)])
+        return cat("cifs"), blob
+
+    def forward(self, rows: torch.Tensor, coarse_hz: torch.Tensor):
+        return self.assemble([self.frames(rows, coarse_hz)], rows.device)
 
 
 class Receiver:
-    """Block-batched DAB receiver on one torch device."""
+    """Block-batched DAB receiver on one torch device, or on a mesh of
+    them."""
 
     _next_tag = itertools.count()
 
     def __init__(self, source, config: Optional[ReceiverConfig] = None,
-                 data_handler_factory=None, audio_pool=None, *, device):
+                 data_handler_factory=None, mesh=None, audio_pool=None, *,
+                 device):
+        """``mesh``: optional :class:`dabjax_torch.parallel.mesh.Mesh`, the
+        multi-device path, whose home must be ``device``.  A block's
+        frames are split into ``mesh.size`` contiguous shards, one a
+        position, for the demod / FIC / PRS work, and every MSC bucket's
+        subchannels over the positions (padded to a multiple of the mesh
+        size); the taps, CIFs and bytes are joined on the home device,
+        which makes the block's one device-to-host copy.  The decoded
+        frames equal the single-device path's."""
         self.source = source
         self.cfg = config or ReceiverConfig()
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if resolve(self.device) != resolve(mesh.home):
+                raise ValueError(f"device {self.device} is not the mesh's "
+                                 f"home {mesh.home}")
+            if self.cfg.frames_per_block % mesh.size:
+                raise ValueError(
+                    f"frames_per_block={self.cfg.frames_per_block} must be "
+                    f"a multiple of the mesh size {mesh.size}")
         self.p = get_mode(self.cfg.mode)
         self.db = EnsembleDB()
         self.metrics = Metrics()
@@ -357,6 +402,21 @@ class Receiver:
         return BlockFn(self.p, "u8" if self._u8 else "f32",
                        device=self.device)
 
+    def _block(self, rows: torch.Tensor):
+        """The block graph over the host rows [F, need, 2]: on this
+        device, or over the mesh in ``mesh.size`` contiguous frame shards,
+        each on its position's device, joined on the home device."""
+        devices = [self.device] if self.mesh is None \
+            else self.mesh.positions()
+        shards = []
+        for part, dev in zip(torch.tensor_split(rows, len(devices)),
+                             devices):
+            with on_device(dev):
+                coarse = torch.full((part.shape[0],), self._coarse_hz,
+                                    dtype=torch.float32, device=dev)
+                shards.append(self._block_fn.frames(part.to(dev), coarse))
+        return self._block_fn.assemble(shards, self.device)
+
     # --------------------------------------------------------------- I/O
 
     def _ensure(self, abs_end: int) -> bool:
@@ -450,10 +510,7 @@ class Receiver:
                                              int(base[0]) + F * p.T_F))
             if not self._u8:                 # complex64 -> (re, im) pairs
                 rows = rows.view(np.float32).reshape(F, need, 2)
-            rows_dev = torch.from_numpy(rows).to(self.device)
-            coarse = torch.full((F,), self._coarse_hz, dtype=torch.float32,
-                                device=self.device)
-            cifs, blob = self._block_fn(rows_dev, coarse)
+            cifs, blob = self._block(torch.from_numpy(rows))
 
         # ----- MSC buckets (skipped entirely in FIC-only use)
         bucket_meta: List[Tuple] = []
@@ -465,8 +522,8 @@ class Receiver:
                 key = tuple(sorted((g.subch_id,) + g.shape_key
                                    + (g.start_addr,) for g in geoms))
                 if key != self._decoder_key:
-                    self._decoder = EnsembleDecoder(geoms, p,
-                                                    device=self.device)
+                    self._decoder = EnsembleDecoder(
+                        geoms, p, mesh=self.mesh, device=self.device)
                     self._decoder_key = key
                 warmup = max(0, HISTORY - self._hist_valid)
                 merged, self._cif_hist, bucket_meta = \

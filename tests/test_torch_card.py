@@ -211,3 +211,96 @@ def test_dots_kernel_matches_plain_on_card():
         for n in vpu_probe2.DOT_NS:
             assert torch.equal(vpu_probe2.dots_cuda(x, w, n),
                                vpu_probe2.dots_torch(x, w, n))
+
+
+@pytest.fixture(scope="module")
+def mesh_rows():
+    """Mode I, 8 frames of the 4 x 96 kbit/s EEP-A ensemble of
+    tests/test_parallel.py: (rows [8, need, 2] float32, geometries,
+    modulator)."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.msc.subchannel import SubchGeometry
+    from dabjax_torch.ofdm.demod import min_frame_samples
+    from dabjax_torch.tx.fig import ServiceSpec
+    from dabjax_torch.tx.modulator import Modulator
+
+    _card()
+    p = get_mode(1)
+    services = [ServiceSpec(label=f"SVC{i}", sid=0x7000 + i, subch_id=i,
+                            start_addr=i * 100, bitrate=96,
+                            protection="EEP-A", prot_level=3, kind="DAB+")
+                for i in range(4)]
+    mod = Modulator(mode=1, services=services)
+    iq = mod.iq(8, snr_db=None)
+    u0, need = p.T_null + p.T_g, min_frame_samples(p)
+    rows = np.stack([iq[u0 + f * p.T_F: u0 + f * p.T_F + need]
+                     for f in range(8)])
+    geoms = [SubchGeometry(s.subch_id, s.start_addr, s.length_cus,
+                           s.bitrate, s.protection, s.prot_level)
+             for s in services]
+    return torch.from_numpy(rows.view(np.float32).reshape(8, need, 2)), \
+        geoms, mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(1, 2), (2, 2)])
+def test_sharded_step_on_card(grid, mesh_rows):
+    """The sharded step on a mesh of cuda:0 positions equals the
+    single-device pipeline on the logical frames, and the CPU mesh's
+    bits everywhere (the zero-history warm-up included)."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.parallel.mesh import make_mesh
+    from dabjax_torch.parallel.sharding import (make_sharded_inputs,
+                                                sharded_ensemble_step)
+    from dabjax_torch.runtime.pipeline import full_ensemble_pipeline
+
+    dev = _card()
+    rows, geoms, mod = mesh_rows
+    p = get_mode(1)
+    starts = np.array([g.start_addr for g in geoms])
+    n = grid[0] * grid[1]
+    bits = {}
+    for where in (dev, torch.device("cpu")):
+        mesh = make_mesh(n, grid, devices=[where] * n)
+        step = sharded_ensemble_step(mesh, p, geoms[0])
+        ratio, bits[where.type] = step(*make_sharded_inputs(mesh, rows,
+                                                           starts))
+        assert float(ratio) == 1.0
+    ok, single = full_ensemble_pipeline(p, geoms, device=dev)(rows.to(dev))
+    torch.cuda.synchronize()
+    assert bits["cuda"].device == dev and bool(ok.all())
+    assert torch.equal(bits["cuda"][:, 15:], single)
+    assert torch.equal(bits["cuda"].cpu(), bits["cpu"])
+    for i, g in enumerate(geoms):
+        assert np.array_equal(single[i, 0].cpu().numpy(),
+                              mod.payload_bits(g.subch_id, 0))
+
+
+@pytest.mark.cuda
+def test_mesh_home_accepts_bare_cuda():
+    """``device="cuda"`` names the current card, which is the home of a
+    mesh of ``cuda:0`` positions; another card, or the CPU, is not."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.io.sources import SyntheticSource
+    from dabjax_torch.msc.subchannel import EnsembleDecoder
+    from dabjax_torch.parallel.mesh import make_mesh
+    from dabjax_torch.runtime.config import ReceiverConfig
+    from dabjax_torch.runtime.receiver import Receiver
+    from dabjax_torch.tx.fig import ServiceSpec
+    from dabjax_torch.tx.modulator import Modulator
+
+    dev = _card()
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(2, (1, 2), devices=[dev] * 2)
+    assert make_mesh(2, (1, 2), devices=["cuda"] * 2).home == dev
+    EnsembleDecoder([], get_mode(1), mesh, device="cuda")
+    src = SyntheticSource(Modulator(mode=1, services=[ServiceSpec(
+        label="SVC0", sid=0x7000, subch_id=0, start_addr=0, bitrate=96,
+        protection="EEP-A", prot_level=3, kind="DAB+")]))
+    cfg = ReceiverConfig(frames_per_block=8)
+    Receiver(src, cfg, mesh=mesh, device="cuda").close()
+    with pytest.raises(ValueError, match="home"):
+        Receiver(src, cfg, mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="home"):
+        EnsembleDecoder([], get_mode(1), mesh,
+                        device=torch.device("cuda", dev.index + 1))
