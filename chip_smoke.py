@@ -61,20 +61,28 @@ non-zero exit at the first failure:
    holding the CUDA kernels;
 10. probes (``dabjax_torch.tools``, the ports of the TPU probes in
     ``tools/``) at the main-path shape, 4428 codewords of 2304 bits: the
-    stage-stripped word forward in its four modes (dot_store, repadd,
-    maxtree, full) against its plain version, words equal, and ``full``
-    against K3 "i8" on the pair steps < T2; K3 "i8" on prepped input
-    against its plain version; the copy kernel and the int8
-    decision-plane kernel bit for bit against theirs; the per-step-plane
-    forward in its three modes (full, dot_only, no_acs), ksplit on and
-    off, against its plain version, plane equal byte for byte, unrolled
-    equal to not, chunk 16 equal to chunk 8, the ``full`` plane packed
-    16 steps per word equal to K3 "i8" words, ``no_acs`` saturated at
-    -128 and 127; the dependent-chain kernels (every dtype and op of
+    stage-stripped word forward (P1) in its four modes (dot_store,
+    repadd, maxtree, and full, which is K3 "i8" on the padded input)
+    against its plain version, words equal, and ``full`` against K3 "i8"
+    on the pair steps < T2, each mode's median of 5 runs of 10 calls
+    beside its earlier design's time, its plain version and its bound,
+    the run failing if ``maxtree`` takes more than 0.48 ms or ``full``
+    more than 0.44 ms; K3 "i8" on prepped input against its plain version; the
+    copy kernel and the int8 decision-plane kernel bit for bit against
+    theirs; the per-step-plane forward (P4) in its three modes (full,
+    dot_only, no_acs) x ksplit on and off x chunk 8 and 16 x unroll 0
+    and 1 against its plain version, plane equal byte for byte, the
+    ``full`` plane packed 16 steps per word equal to K3 "i8" words,
+    ``no_acs`` saturated at -128 and 127, ``vit_split``'s chunk 16 plane
+    equal to chunk 8's, each mode at chunk 8 timed as P1's, the run
+    failing if ``full`` (ksplit) takes more than 0.60 ms; the
+    dependent-chain kernels (every dtype and op of
     ``vpu_probe``, every dtype of ``vpu_probe2``, every chain length
     built, integer adds wrapping) bit for bit against their plain
     versions, with the SASS instructions each op adds (none may be 0: a
-    folded chain); the dot-shape kernels (the step loop in every case of
+    folded chain), a call of each timed on the device (behind a device
+    sleep, ``tools.device_ms``) beside the host's issue time; the
+    dot-shape kernels (the step loop in every case of
     ``vit_dotshapes``' main() at both lane counts, the batched product in
     f32 and bf16, the chained dots of ``vpu_probe2`` at its three shapes)
     against their plain versions, within ``DOT_TOL`` on the TPU probes'
@@ -157,9 +165,28 @@ def _clocks() -> str:
 
 
 def _cuda_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn()`` by CUDA events after a warm-up call."""
+    """Mean ms of ``fn()`` by CUDA events after a warm-up call (for calls
+    that keep the device busy longer than the host takes to issue them)."""
     from dabjax_torch.tools import cuda_ms
     return cuda_ms(fn, reps)
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls enqueued behind a
+    device sleep, which must outlast their issue (``tools.device_ms``):
+    for short kernels, whose back-to-back calls ``_cuda_ms`` times at the
+    host's issue rate, and for a batch of a few hundred small PyTorch
+    calls, whose issue on a loaded host outlasts the device work."""
+    from dabjax_torch.tools import device_ms
+    return device_ms(fn, reps)
+
+
+def _median_runs(fn, runs: int = 5, reps: int = 10) -> dict:
+    """{median, min, max, runs_ms}: device ms of ``runs`` runs of ``reps``
+    calls of ``fn``."""
+    import statistics
+    v = sorted(_device_ms(fn, reps) for _ in range(runs))
+    return dict(median=statistics.median(v), min=v[0], max=v[-1], runs_ms=v)
 
 
 def _interleaved_ms(fns: dict, runs: int, reps: int = 10) -> dict:
@@ -714,26 +741,6 @@ def phase_formats(dev, report, golden):
 STAGE_ROUNDS = 5
 
 
-def _device_ms(fn, reps: int) -> float:
-    """Mean device ms of ``fn()`` over ``reps`` calls: CUDA events around
-    the calls, enqueued behind a 0.1 s device sleep so that the device
-    runs them back to back however slowly the host issues them (a batch
-    is a few hundred small PyTorch calls, and on a loaded host their
-    issue outlasts the device work)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)          # cycles: 0.1 s at 2 GHz
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 def phase_stages(dev, report, golden):
     import math
     import statistics
@@ -874,6 +881,23 @@ def phase_trace(dev, report, golden):
 
 #: runs in turns of the copy kernel and torch.mul (phase 10)
 COPY_REPS = 7
+#: the redesigned probes' earlier designs at the main-path shape, ms, as
+#: the printed lines quote them beside this run's times (not measured
+#: here, and not in the kernels line): phase 10 of this script's last run
+#: before their redesign (NVIDIA H100 80GB HBM3, 700 W; PERF.md section
+#: 6): P4 (forward_plane, ksplit, chunk 8) by mode, and P1
+#: (forward_words_stage) by stage
+PLANE_OLD_MS = {"full": 0.9933, "dot_only": 0.3281, "no_acs": 0.4615,
+                "full_k8": 0.8861, "dot_only_k8": 0.2697, "no_acs_k8": 0.3878}
+STAGE_OLD_MS = {"dot_store": 0.1470, "repadd": 0.2185, "maxtree": 0.4168,
+                "full": 0.5238}
+#: gates of the redesigned probes, ms (medians of 5 runs of 10 calls):
+#: P4 full (ksplit, chunk 8), with room for a card that runs 1.23x slow
+#: (one of the pool did); P1 at 1.3x its times on an H100 at 700 W, in
+#: the deepest stage its own kernel runs (maxtree, 0.3703 ms) and in
+#: full, which is K3 "i8" (0.3393 ms)
+PLANE_GATE_MS = 0.60
+STAGE_GATES_MS = {"maxtree": 0.48, "full": 0.44}
 
 
 def _probe_checks(dev, report):
@@ -892,7 +916,9 @@ def _probe_checks(dev, report):
     def err(a, b):
         return int((a.long() - b.long()).abs().max())
 
-    # vit_variants2: each stage against its plain version, full against K3
+    # vit_variants2 (P1, redesigned; its full stage is K3 "i8"): each
+    # stage against its plain version, timed beside its earlier design,
+    # its plain version and the bound; maxtree and full gated
     x = vv2.padded_pair_soft(soft, nbits)
     modes, stage_err = {}, 0
     for mode in vv2.MODES:
@@ -900,12 +926,27 @@ def _probe_checks(dev, report):
                 vv2.forward_words_stage_torch(x, mode))
         _check(e == 0, f"vit_variants2 {mode}: words differ from plain")
         stage_err = max(stage_err, e)
+        r = _median_runs(lambda: vv2.forward_words_stage_cuda(x, mode))
+        bound = _words_stage_bound(B, x.shape[1],
+                                   mode in ("maxtree", "full"))
         modes[mode] = dict(
-            ms=_cuda_ms(lambda: vv2.forward_words_stage_cuda(x, mode), 10),
+            ms=r["median"], runs_ms=r["runs_ms"],
+            kernel="viterbi_forward_acs_words" if mode == "full"
+            else "forward_words_stage",
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
             plain_ms=_cuda_ms(lambda: vv2.forward_words_stage_torch(x, mode),
                               1))
-        print(f"probes: vit_variants2 {mode}: {modes[mode]['ms']:.4f} ms "
-              f"(plain {modes[mode]['plain_ms']:.2f} ms), exact")
+        print(f"probes: vit_variants2 {mode}: {r['median']:.4f} ms "
+              f"({r['min']:.4f}-{r['max']:.4f}, median of 5 runs of 10), "
+              f"earlier design {STAGE_OLD_MS[mode]:.4f} ms (recorded "
+              f"before the redesign), {modes[mode]['kernel']}, plain "
+              f"{modes[mode]['plain_ms']:.2f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+              f"{r['median'] / bound['bound_ms']:.2f}x), exact")
+    for mode, gate in STAGE_GATES_MS.items():
+        _check(modes[mode]["ms"] <= gate,
+               f"vit_variants2 {mode} takes {modes[mode]['ms']:.4f} ms, "
+               f"above {gate}")
     k3_words, _ = vc.viterbi_forward_words_cuda(
         vit_split2.prep(soft, nbits), "i8")
     full = vv2.forward_words_stage_cuda(x, "full")
@@ -978,56 +1019,77 @@ def _probe_checks(dev, report):
 
 
 def _plane_checks(report, soft, k3_words):
-    """Phase 10, planes: the per-step-plane forward in every mode, ksplit
-    on and off, against its plain version bit for bit; unrolled against
-    not; chunk 16 against chunk 8; the ``full`` plane packed 16 steps per
-    word against K3 "i8" words; ``no_acs`` saturated at both ends."""
+    """Phase 10, planes: the per-step-plane forward (P4, redesigned) in
+    every mode, ksplit on and off, chunk 8 and 16, unrolled or not,
+    against its plain version byte for byte; the ``full`` plane packed 16
+    steps per word against K3 "i8" words; ``no_acs`` saturated at both
+    ends; each mode at chunk 8 timed (median of 5 runs of 10 calls)
+    beside its earlier design, its plain version and the bound, ``full``
+    (ksplit) gated at PLANE_GATE_MS; ``vit_split``'s chunk 16 plane equal
+    to chunk 8's, zero past it."""
     import torch
     from dabjax_torch import tools
     from dabjax_torch.tools import vit_split, vit_variants as vv
 
-    nbits = tools.NBITS
-    T2, Tp2 = vv.pair_steps(nbits)
+    B, nbits = tools.CODEWORDS, tools.NBITS
     modes, plane_err, full = {}, 0, None
-    for ksplit in (True, False):
-        x = vv.plane_soft(soft, nbits, 8, ksplit)
-        for mode in vv.MODES:
-            plane = vv.forward_plane_cuda(x, T2, mode)
-            e = int((plane.int() - vv.forward_plane_torch(x, T2, mode).int())
-                    .abs().max())
-            _check(e == 0, f"forward_plane {mode} (ksplit {ksplit}) differs "
-                   "from plain")
-            plane_err = max(plane_err, e)
-            _check(torch.equal(vv.forward_plane_cuda(x, T2, mode, unroll=True),
-                               plane),
-                   f"forward_plane {mode} (ksplit {ksplit}): unroll 1 != 0")
-            if mode == "full":
-                _check(torch.equal(vv.pack_words(plane), k3_words),
-                       f"full plane (ksplit {ksplit}) != K3 i8 words")
-                if ksplit:
-                    full = plane
-            if mode == "no_acs":
-                _check(bool((plane == -128).any() and (plane == 127).any()),
-                       "no_acs plane holds not both -128 and 127")
-            # the plain version timed at ksplit on (the probe's default)
-            key = mode if ksplit else f"{mode}_k8"
-            modes[key] = dict(
-                ms=_cuda_ms(lambda: vv.forward_plane_cuda(x, T2, mode), 10),
-                unroll_ms=_cuda_ms(lambda: vv.forward_plane_cuda(
-                    x, T2, mode, unroll=True), 10))
-            if ksplit:
-                modes[key]["plain_ms"] = _cuda_ms(
-                    lambda: vv.forward_plane_torch(x, T2, mode), 1)
-            print(f"probes: vit_variants {key}: {modes[key]['ms']:.4f} ms, "
-                  f"unrolled {modes[key]['unroll_ms']:.4f} ms" +
-                  (f" (plain {modes[key]['plain_ms']:.2f} ms)" if ksplit
-                   else "") + ", exact")
-        print(f"probes: vit_variants ksplit={ksplit}: three modes equal "
-              "plain, unroll 0 = 1, full packs to K3 i8, no_acs saturates")
+    for chunk in vv.CHUNKS:
+        T2, Tp2 = vv.pair_steps(nbits, chunk)
+        for ksplit in (True, False):
+            x = vv.plane_soft(soft, nbits, chunk, ksplit)
+            bound = _plane_bound(B, Tp2, x.shape[2])
+            for mode in vv.MODES:
+                want = vv.forward_plane_torch(x, T2, mode, chunk)
+                for unroll in (False, True):
+                    plane = vv.forward_plane_cuda(x, T2, mode, chunk, unroll)
+                    e = int((plane.int() - want.int()).abs().max())
+                    _check(e == 0, f"forward_plane {mode} (ksplit {ksplit}, "
+                           f"chunk {chunk}, unroll {unroll}) differs from "
+                           "plain")
+                    plane_err = max(plane_err, e)
+                if mode == "full":
+                    _check(torch.equal(vv.pack_words(plane), k3_words),
+                           f"full plane (ksplit {ksplit}, chunk {chunk}) != "
+                           "K3 i8 words")
+                    if ksplit and chunk == 8:
+                        full = plane
+                if mode == "no_acs":
+                    _check(bool((plane == -128).any()
+                                and (plane == 127).any()),
+                           "no_acs plane holds not both -128 and 127")
+                if chunk != 8:
+                    continue
+                key = mode if ksplit else f"{mode}_k8"
+                r = _median_runs(lambda: vv.forward_plane_cuda(x, T2, mode))
+                ru = _median_runs(lambda: vv.forward_plane_cuda(
+                    x, T2, mode, unroll=True))
+                modes[key] = dict(ms=r["median"], runs_ms=r["runs_ms"],
+                                  unroll_ms=ru["median"],
+                                  bound_ms=bound["bound_ms"],
+                                  bound_by=bound["bound_by"])
+                plain = ""
+                if ksplit:   # the plain version timed at the probe's default
+                    modes[key]["plain_ms"] = _cuda_ms(
+                        lambda: vv.forward_plane_torch(x, T2, mode), 1)
+                    plain = f", plain {modes[key]['plain_ms']:.2f} ms"
+                print(f"probes: vit_variants {key}: {r['median']:.4f} ms "
+                      f"({r['min']:.4f}-{r['max']:.4f}, median of 5 runs of "
+                      f"10), unrolled {ru['median']:.4f} ms, earlier design "
+                      f"{PLANE_OLD_MS[key]:.4f} ms (recorded before the "
+                      f"redesign){plain}, bound "
+                      f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+                      f"{r['median'] / bound['bound_ms']:.2f}x), exact")
+        print(f"probes: vit_variants chunk={chunk}: three modes x ksplit on "
+              "and off x unroll 0 and 1 equal plain, full packs to K3 i8, "
+              "no_acs saturates")
     report["vit_variants"] = dict(err=plane_err, modes=modes)
+    _check(modes["full"]["ms"] <= PLANE_GATE_MS,
+           f"forward_plane full takes {modes['full']['ms']:.4f} ms, above "
+           f"{PLANE_GATE_MS}")
 
     # vit_split: chunk 8 and 16, unrolled or not; the padding steps of
     # chunk 16 (past T2) are 0
+    T2, Tp2 = vv.pair_steps(nbits)
     split = dict(err=plane_err, prep_ms={}, ms={})
     for chunk in vv.CHUNKS:
         split["prep_ms"][chunk] = _cuda_ms(
@@ -1038,7 +1100,7 @@ def _plane_checks(report, soft, k3_words):
             _check(torch.equal(plane[:Tp2], full)
                    and not bool(plane[Tp2:].any()),
                    f"vit_split C={chunk} unroll={unroll} != the C=8 plane")
-            split["ms"][f"C{chunk}_unroll{int(unroll)}"] = _cuda_ms(
+            split["ms"][f"C{chunk}_unroll{int(unroll)}"] = _device_ms(
                 lambda: vit_split.fwd(x, T2, chunk, unroll), 10)
     split["plain_ms"] = modes["full"]["plain_ms"]
     print(f"probes: vit_split: prep ms {split['prep_ms']}, kernel ms "
@@ -1094,13 +1156,15 @@ def _chain_checks(dev, report):
               f"{vpu_probe.CHAIN_NS} bit for bit; us/op (n 512->2048) " +
               ", ".join(f"{op} {r['long_us']:.4f}"
                         for op, r in chain[dtype].items()))
+    # one call at the TPU probe's longest chain (float32 mix, n 64): device
+    # ms behind a sleep, beside the host's issue time (back-to-back calls
+    # timed by events alone)
     x = vpu_probe.tile("float32", seed=9).to(dev)
     report["vpu_probe"] = dict(
         err=chain_err, per_op=chain,
-        ms=_cuda_ms(lambda: vpu_probe.elementwise_chain_cuda(x, "mix", 64),
-                    100),
-        plain_ms=_cuda_ms(
-            lambda: vpu_probe.elementwise_chain_torch(x, "mix", 64), 3))
+        **_short_call(lambda: vpu_probe.elementwise_chain_cuda(x, "mix", 64),
+                      lambda: vpu_probe.elementwise_chain_torch(x, "mix", 64),
+                      "vpu_probe float32 mix n 64"))
 
     pair, pair_err = {}, 0.0
     for dtype in vpu_probe2.DTYPES:
@@ -1118,8 +1182,24 @@ def _chain_checks(dev, report):
     x, y = (t.to(dev) for t in vpu_probe2.pair_tiles("float32", seed=9))
     report["vpu_probe2"] = dict(
         err=pair_err, per_op=pair,
-        ms=_cuda_ms(lambda: vpu_probe2.pair_chain_cuda(x, y, 96), 100),
-        plain_ms=_cuda_ms(lambda: vpu_probe2.pair_chain_torch(x, y, 96), 3))
+        **_short_call(lambda: vpu_probe2.pair_chain_cuda(x, y, 96),
+                      lambda: vpu_probe2.pair_chain_torch(x, y, 96),
+                      "vpu_probe2 float32 n 96"))
+
+
+def _short_call(kernel, plain, what: str) -> dict:
+    """{ms, runs_ms, host_ms, plain_ms} of a kernel call shorter than the
+    host's time to issue it: the device's median of 5 runs of 100 calls,
+    the host's issue time (the same calls timed by events alone) and the
+    plain version's device ms; prints them."""
+    r = _median_runs(kernel, reps=100)
+    out = dict(ms=r["median"], runs_ms=r["runs_ms"],
+               host_ms=_cuda_ms(kernel, 100), plain_ms=_device_ms(plain, 3))
+    print(f"probes: {what}: {out['ms'] * 1e3:.3f} us a call on the device "
+          f"({r['min'] * 1e3:.3f}-{r['max'] * 1e3:.3f}, median of 5 runs of "
+          f"100), {out['host_ms'] * 1e3:.3f} us by events alone (the host's "
+          f"issue time), plain {out['plain_ms'] * 1e3:.1f} us")
+    return out
 
 
 #: the dot probes' tolerance on the TPU probes' standard-normal inputs:
@@ -1205,7 +1285,7 @@ def _dot_checks(dev, report):
     steps_row = dict(
         err=worst["abs"], rel_err=worst["rel"], tolerance=DOT_TOL,
         ms=per["kernel"], plain_ms=per["plain"],
-        library_ms=_cuda_ms(lambda: torch.matmul(s, x[0]), 100),
+        library_ms=_device_ms(lambda: torch.matmul(s, x[0]), 100),
         sass_per_step=steps_sass, shape=(16, 4480))
     print(f"probes: vit_dotshapes f32 dot K=16 LB=4480: kernel "
           f"{steps_row['ms'] * 1e3:.4f} us/step (plain "
@@ -1261,7 +1341,7 @@ def _dot_checks(dev, report):
         r = vpu_probe2.dot_rates(x, w)
         dots[tag] = dict(ms=r["long_us"] / 1e3, short_ms=r["us"] / 1e3,
                          plain_ms=r["plain_us"] / 1e3,
-                         library_ms=_cuda_ms(lambda: torch.matmul(
+                         library_ms=_device_ms(lambda: torch.matmul(
                              w, x[:kdim]), 100),
                          rows=rows, kdim=kdim, sass_per_dot=dots_sass[tag])
         print(f"probes: vpu_probe2 dot {tag}: n {vpu_probe2.DOT_NS} bit for "
@@ -1510,7 +1590,9 @@ def _mesh_step_checks(dev, report, golden, mesh, path):
         _check(float(ratio) == 1.0 and torch.equal(bits, first),
                f"mesh: repeat {i} differs from the first run")
     with _counted(path):
-        device_ms = _device_ms(lambda: step(*inputs), 5)
+        # single calls: a step's few hundred launches, five times over,
+        # would fill the launch queue behind the sleep
+        device_ms = _median_runs(lambda: step(*inputs), reps=1)["median"]
     median = statistics.median(wall)
     batch_ms = report["pipeline"]["seconds_per_batch"] * 1e3
     print(f"mesh: 10 repeats equal the first; step {median:.4f} ms wall "
@@ -1607,8 +1689,8 @@ def _mesh_pad_cost(dev, golden, mesh):
     ms = {}
     for n in (12, 8):
         dec = EnsembleDecoder(geoms[:n], p, mesh, device=dev)
-        ms[n] = _device_ms(torch.no_grad()(
-            lambda: dec.fused(hist, cifs, blob)), 5)
+        ms[n] = _median_runs(torch.no_grad()(
+            lambda: dec.fused(hist, cifs, blob)), reps=1)["median"]
     pad = (ms[12] - ms[8]) / 2
     print(f"mesh: MSC chain of 12 subchannels (16 rows) {ms[12]:.4f} "
           f"ms, of 8 (8 rows) {ms[8]:.4f} ms of device time: the 4 pad "
@@ -1644,6 +1726,15 @@ def phase_mesh(dev, report, golden, loop_iq):
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32_flop": 67e12, "lane_op": 33.5e12,
                   "bf16_flop": 989e12}
+#: the card's SMs and SM clock (132 and 1.98 GHz at 700 W, as phase 1
+#: prints it), and the results a clock an SM of each pipe of sm_90 (the
+#: CUDA C++ Programming Guide's throughput table of native arithmetic
+#: instructions, compute capability 9.0): FP32 add, multiply and FMA 128;
+#: compare, minimum and maximum (FMNMX, IMNMX) and 32-bit integer add 64;
+#: and the issue limit of all pipes together, one warp instruction a
+#: clock on each of the SM's 4 schedulers
+SMS, SM_HZ = 132, 1.98e9
+PIPE_RESULTS = {"fp32": 128, "alu": 64, "issue": 128}
 
 
 def _bound(nbytes: float, ops: float, unit: str) -> dict:
@@ -1653,6 +1744,37 @@ def _bound(nbytes: float, ops: float, unit: str) -> dict:
     t_ops = ops / PEAK_OPS_PER_S[unit]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _pipe_bound(nbytes: float, instructions: dict) -> dict:
+    """The least time of a kernel whose thread instructions by pipe are
+    ``instructions``: the larger of ``nbytes`` over the memory rate and
+    the slowest pipe (its instructions over its rate, or all of them over
+    the issue limit); ``pipe_ms`` gives each pipe's time."""
+    clocks = {p: n / (PIPE_RESULTS[p] * SMS * SM_HZ)
+              for p, n in instructions.items()}
+    clocks["issue"] = (sum(instructions.values())
+                       / (PIPE_RESULTS["issue"] * SMS * SM_HZ))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, max(clocks.values())
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "pipe_ms": {"bytes": t_bytes * 1e3,
+                        **{p: t * 1e3 for p, t in clocks.items()}}}
+
+
+def _words_stage_bound(B: int, Tw: int, acs: bool = True) -> dict:
+    """P1's bound: int8 pair steps in and the words out, and with ``acs``
+    (its ``maxtree`` and ``full`` stages) 7 operations a state a pair step
+    (radix 4: four adds and three maxima)."""
+    return _bound(B * Tw * 8 + Tw // 16 * 64 * B * 4,
+                  B * Tw * 64 * 7 if acs else 0, "lane_op")
+
+
+def _plane_bound(B: int, Tp: int, K: int = 16) -> dict:
+    """P4's bound: K float soft values a pair step in (16 with ksplit) and
+    the int8 plane out; 7 operations a state a pair step (``full``; the
+    bytes bound every mode)."""
+    return _bound(B * Tp * K * 4 + Tp * 64 * B, B * Tp * 64 * 7, "lane_op")
 
 
 def _kernel_lines(report, launches):
@@ -1676,7 +1798,6 @@ def _kernel_lines(report, launches):
     Tp = vit_variants.pair_steps(nbits)[1]  # pair steps of the plane probe
     acs2, acs4 = 64 * 3, 64 * 7
     words_io = B * T2 * 8 + W * 64 * B * 4 + B * 4
-    plane_io = B * Tp * 16 * 4 + Tp * 64 * B
     src, probes = ("dabjax_torch/csrc/viterbi.cu",
                    "dabjax_torch/csrc/probes.cu")
     chains, dots = "dabjax_torch/csrc/chains.cu", "dabjax_torch/csrc/dots.cu"
@@ -1731,12 +1852,14 @@ def _kernel_lines(report, launches):
              words["k4"][1], words["k4"][2], None,
              _bound(B * T2 * 4 + B * nbits * 4, B * T2 * 3, "lane_op"),
              runs_ms=words["k4_runs_ms"]),
+        # the stage probe's own kernel at its deepest stage (its full
+        # stage is K3's, under "modes")
         line("forward_words_stage", probes, "tools/vit_variants2.py:47",
              pl["vit_variants2"], stages["err"],
-             stages["modes"]["full"]["ms"],
-             stages["modes"]["full"]["plain_ms"], None,
-             _bound(B * Tw * 8 + W * 64 * B * 4, B * Tw * acs4, "lane_op"),
-             modes=stages["modes"]),
+             stages["modes"]["maxtree"]["ms"],
+             stages["modes"]["maxtree"]["plain_ms"], None,
+             _words_stage_bound(B, Tw), runs_ms=stages["modes"]["maxtree"][
+                 "runs_ms"], modes=stages["modes"]),
         line("viterbi_forward_acs_words_i8_prepped", src,
              "tools/vit_split2.py:54", pl["vit_split2"], split2["err"],
              split2["ms"], split2["plain_ms"], None,
@@ -1757,24 +1880,28 @@ def _kernel_lines(report, launches):
         # the plane forward: full mode, ksplit, C = 8
         line("forward_plane", probes, "tools/vit_variants.py:38",
              pl["vit_variants"], plane["err"], plane["modes"]["full"]["ms"],
-             plane["modes"]["full"]["plain_ms"], None,
-             _bound(plane_io, B * Tp * acs4, "lane_op"),
+             plane["modes"]["full"]["plain_ms"], None, _plane_bound(B, Tp),
+             runs_ms=plane["modes"]["full"]["runs_ms"],
              modes=plane["modes"]),
         line("forward_plane_full", probes, "tools/vit_split.py:59",
              pl["vit_split"], split["err"], split["ms"]["C8_unroll0"],
-             split["plain_ms"], None,
-             _bound(plane_io, B * Tp * acs4, "lane_op"),
+             split["plain_ms"], None, _plane_bound(B, Tp),
              unroll_ms=split["ms"], prep_ms=split["prep_ms"]),
         # the chains: one launch at the TPU probe's longest chain (float32
-        # mix n 64: an add and a max an element; pair n 96), the per-op us
-        # of every dtype in the sub-object
+        # mix n 64: an FADD and an FMNMX an element a step; pair n 96: 48
+        # of each), device ms beside the host's issue time, bound by pipe;
+        # the per-op us of every dtype in the sub-object
         line("elementwise_chain", chains, "tools/vpu_probe.py:39",
              pl["vpu_probe"], chain["err"], chain["ms"], chain["plain_ms"],
-             None, _bound(8 * n_chain, 64 * 2 * n_chain, "lane_op"),
+             None, _pipe_bound(8 * n_chain, {"fp32": 64 * n_chain,
+                                             "alu": 64 * n_chain}),
+             runs_ms=chain["runs_ms"], host_ms=chain["host_ms"],
              per_op_us=chain["per_op"]),
         line("pair_chain", chains, "tools/vpu_probe2.py:37",
              pl["vpu_probe2"], pair["err"], pair["ms"], pair["plain_ms"],
-             None, _bound(12 * n_pair, 96 * n_pair, "lane_op"),
+             None, _pipe_bound(12 * n_pair, {"fp32": 48 * n_pair,
+                                             "alu": 48 * n_pair}),
+             runs_ms=pair["runs_ms"], host_ms=pair["host_ms"],
              per_op_us=pair["per_op"]),
         # the dot shapes: times per step (f32 dot, K 16, LB 4480) and per
         # dot ([256, 8] @ [8, 4480]), from the slope between two lengths;

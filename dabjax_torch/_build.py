@@ -123,7 +123,7 @@ def load_library() -> ctypes.CDLL:
     lib.dabjax_probe_scale_copy.restype = i
     lib.dabjax_probe_decision_plane.argtypes = [vp, vp, i, i, i, i, vp]
     lib.dabjax_probe_decision_plane.restype = i
-    lib.dabjax_probe_forward_plane.argtypes = [vp, vp, vp, i, i, i, i, i, i,
+    lib.dabjax_probe_forward_plane.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
                                                i, vp]
     lib.dabjax_probe_forward_plane.restype = i
     ll, u = ctypes.c_longlong, ctypes.c_uint

@@ -86,17 +86,9 @@ namespace {
 //    measured the same, eight slower.
 // A partial last tile runs its 32 steps on zero soft words and stores
 // only the steps below T.
-constexpr int kFwTile = 32;                   // steps of a tile
-constexpr int kFwPhases = 5;                  // period of the lane rotation
+// (kFwTile, kFwPhases, kLive, kDead, rotl5 and the core's step, U16Core,
+// are in acs.cuh: K3 and the plane forward probe run this core too)
 constexpr int kFwWarps = 4;                   // warps (codewords) of a block
-constexpr unsigned kLive = 32768u;            // state 0, at every tile start
-constexpr unsigned kDead = kLive - 8192u;     // the other start states
-
-// the 5-bit lane index rotated left by k (k may be negative)
-__device__ __forceinline__ int rotl5(int x, int k) {
-  k = ((k % kFwPhases) + kFwPhases) % kFwPhases;
-  return ((x << k) | (x >> (kFwPhases - k))) & 31;
-}
 
 __global__ void __launch_bounds__(32 * kFwWarps, 9)
 forward_acs(const int32_t* __restrict__ soft,   // [B, T] packed int8x4
@@ -112,30 +104,12 @@ forward_acs(const int32_t* __restrict__ soft,   // [B, T] packed int8x4
   const int32_t* s = soft + static_cast<size_t>(cw) * T;
   uint2* d = dec + static_cast<size_t>(cw) * T;
 
-  // By phase: the signs of the lane's butterfly (it holds states u and
-  // u + 32, u = rotl5(lane, phase)), and the byte selectors that build
-  // (lo, lo) and (hi, hi) from the lane's own new pair and its partner's
-  // after a step of that phase (the lane keeps its low half when its
-  // exchanged lane bit is 0, its high half when it is 1).
-  int sg[kFwPhases];
-  unsigned sel_lo[kFwPhases], sel_hi[kFwPhases];
-#pragma unroll
-  for (int p = 0; p < kFwPhases; ++p) {
-    sg[p] = signs[rotl5(lane, p)];
-    const bool up = (lane >> (4 - p)) & 1;
-    sel_lo[p] = up ? 0x7676u : 0x1010u;
-    sel_hi[p] = up ? 0x3232u : 0x5454u;
-    // kept in registers: left to itself the compiler builds the ten
-    // selectors anew in every tile, 25 ALU instructions more
-    asm volatile("" : "+r"(sel_lo[p]), "+r"(sel_hi[p]));
-  }
-  // a tile ends in phase (kFwTile - 1) % kFwPhases and the next begins
-  // as if after phase kFwPhases - 1
-  const int back = rotl5(lane, -((kFwTile - 1) % kFwPhases + 1));
+  U16Core core;
+  core.init(signs, lane);
   // new pair (2v, 2v + 1) of the lane, v = rotl5(lane, -1): state 0 is
   // the low half of lane 0, in every phase
-  unsigned n = kDead * 0x10001u;
-  if (lane == 0) n = kLive | (kDead << 16);
+  core.n = kDead * 0x10001u;
+  if (lane == 0) core.n = kLive | (kDead << 16);
 
   const int tiles = (T + kFwTile - 1) / kFwTile;
   int w = (lane < T) ? s[lane] : 0;
@@ -148,31 +122,12 @@ forward_acs(const int32_t* __restrict__ soft,   // [B, T] packed int8x4
     __syncwarp();
     const int t_next = t0 + kFwTile + lane;
     w = (t_next < T) ? s[t_next] : 0;
-    if (k) {
-      n = __shfl_sync(kFull, n, back);
-      const unsigned zero = __shfl_sync(kFull, n, 0) & 0xffffu;
-      n += (kLive - zero) * 0x10001u;
-    }
-    int4 x4;
-#pragma unroll
-    for (int j = 0; j < kFwTile; ++j) {
-      const int phase = j % kFwPhases;
-      const int prev = (j + kFwPhases - 1) % kFwPhases;
-      if (j % 4 == 0) x4 = *reinterpret_cast<const int4*>(buf + j);
-      const int x = j % 4 == 0 ? x4.x : j % 4 == 1 ? x4.y
-                  : j % 4 == 2 ? x4.z : x4.w;
-      const unsigned other = __shfl_xor_sync(kFull, n, 16 >> prev);
-      const unsigned lo = __byte_perm(n, other, sel_lo[prev]);
-      const unsigned hi = __byte_perm(n, other, sel_hi[prev]);
-      const unsigned b = static_cast<unsigned>(__dp4a(x, sg[phase], 0));
-      const unsigned a = lo + b * 0xffff0001u;   // (lo + b, lo - b)
-      const unsigned c = hi + b * 0x0000ffffu;   // (hi - b, hi + b)
-      bool a_hi, a_lo;                           // branch 0 kept (a >= c)
-      n = __vibmax_u16x2(a, c, &a_hi, &a_lo);
-      const unsigned dec_lo = __ballot_sync(kFull, !a_lo);
-      const unsigned dec_hi = __ballot_sync(kFull, !a_hi);
-      if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);
-    }
+    if (k) core.renorm();
+    core.tile(buf, lane,
+              [&](int j, unsigned dec_lo, unsigned dec_hi) {
+                if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);
+              },
+              [](int, unsigned, unsigned) {});
     __syncwarp();
     const uint2 mine = ds[warp][lane];
     if (t0 + lane < T) d[t0 + lane] = mine;
@@ -228,29 +183,6 @@ constexpr int kTbTile = kTbCw * kTbRow;       // bytes of a warp's tile
 // between tiles below is a rotation by 2
 static_assert(kTbSteps == kFwTile && (kFwTile - 1) % kFwPhases + 1 == 2,
               "K2's walk assumes K1's tile and rotation");
-
-// cp.async of kBytes, or kBytes of zeros when !valid (src-size 0; src
-// must still be a valid address)
-template <int kBytes>
-__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src,
-                                               bool valid) {
-  const int n = valid ? kBytes : 0;
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                 :: "r"(dst), "l"(src), "r"(n) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
-                 :: "r"(dst), "l"(src), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
-}
 
 // Copy the decisions of tile k (steps 32k .. 32k + 31) of codewords
 // cw0 .. cw0 + kTbCw - 1 into the shared tile at `tile`, zeros past T and
@@ -396,56 +328,8 @@ traceback(const uint2* __restrict__ dec,  // [B, T] decision words
 // kernel's output.
 constexpr int kWdWarps = 4;                   // warps (codewords) of a block
 
-// Word 0: pair steps 0 .. n0 - 1 (n0 = min(16, T2)) of dabjax's radix-4
-// recursion, stored as the 64 words of word index 0; leaves the metrics
-// of states lane (pm_lo) and lane + 32 (pm_hi) and state 0's inner
-// decision of the last pair step.  The four predecessors of state l sit
-// in lanes l >> 2 and 16 + (l >> 2), those of l + 32 in lanes
-// 8 + (l >> 2) and 24 + (l >> 2), each as a lo and a hi metric.
-template <typename M, typename S>
-__device__ __forceinline__ void k3_word0(
-    const typename S::Pair* __restrict__ s,
-    const typename S::Pair* __restrict__ signs, int32_t* __restrict__ d,
-    int n0, M start, int lane, M& pm_lo, M& pm_hi, bool& da0) {
-  using Pair = typename S::Pair;
-  pm_lo = (lane == 0) ? M(0) : start;
-  pm_hi = start;
-  const int q = lane >> 2;
-  const int src_a = q, src_b = 16 + q, src_c = 8 + q, src_d = 24 + q;
-  unsigned acc_lo = 0, acc_hi = 0;
-  const Pair w = (lane < n0) ? s[lane] : S::zero();
-#pragma unroll 1
-  for (int j = 0; j < n0; ++j) {
-    const Pair x = S::shfl(w, j);
-    // state lane: e=0 p=q, e=1 p=16+q, e=2 p=32+q, e=3 p=48+q
-    const M a_lo = __shfl_sync(kFull, pm_lo, src_a);
-    const M a_hi = __shfl_sync(kFull, pm_hi, src_a);
-    const M b_lo = __shfl_sync(kFull, pm_lo, src_b);
-    const M b_hi = __shfl_sync(kFull, pm_hi, src_b);
-    // state lane + 32: e=0 p=8+q, e=1 p=24+q, e=2 p=40+q, e=3 p=56+q
-    const M c_lo = __shfl_sync(kFull, pm_lo, src_c);
-    const M c_hi = __shfl_sync(kFull, pm_hi, src_c);
-    const M d_lo = __shfl_sync(kFull, pm_lo, src_d);
-    const M d_hi = __shfl_sync(kFull, pm_hi, src_d);
-    // branch rows e*64 + n, read where they are used (16 steps; L1)
-    bool da_lo, da_hi;
-    const unsigned e_lo = select4(
-        cand(a_lo, S::bm(x, signs[lane])),
-        cand(b_lo, S::bm(x, signs[64 + lane])),
-        cand(a_hi, S::bm(x, signs[128 + lane])),
-        cand(b_hi, S::bm(x, signs[192 + lane])), pm_lo, da_lo);
-    const unsigned e_hi = select4(
-        cand(c_lo, S::bm(x, signs[32 + lane])),
-        cand(d_lo, S::bm(x, signs[96 + lane])),
-        cand(c_hi, S::bm(x, signs[160 + lane])),
-        cand(d_hi, S::bm(x, signs[224 + lane])), pm_hi, da_hi);
-    acc_lo |= e_lo << (2 * j);
-    acc_hi |= e_hi << (2 * j);
-    da0 = da_lo;
-  }
-  d[lane] = static_cast<int32_t>(acc_lo);
-  d[32 + lane] = static_cast<int32_t>(acc_hi);
-}
+// (k3_word0, word 0, k3_pack_pair, the u16 core's pack, and the u16 core,
+// U16Core, are in acs.cuh: the plane forward probe runs them too)
 
 // The pack: the radix-4 words of states lane (acc_a) and lane + 32
 // (acc_b) of one tile from its vote words (low word, high word of each
@@ -457,11 +341,12 @@ __device__ __forceinline__ void k3_word0(
 // constant rotr5(16, ph1) to the first position and rotr5(8, ph0) to the
 // second (bits that are clear there).  About 15 instructions a pair for
 // both states, in two forms, each the faster one for its core (measured):
-//  * k3_pack_pair, integer-ALU: each bit fetched by one funnel rotation
-//    that puts it where the word wants it (bit 2jp for d1, 2jp + 1 for
-//    d0) and merged under a constant mask; p1[ph] = rotr5(lane >> 1, ph),
-//    p0[ph] = rotr5(lane >> 2, ph).  The u16 core calls it as soon as a
-//    pair's two steps are voted (0.338 ms against 0.348 after the tile).
+//  * k3_pack_pair (acs.cuh), integer-ALU: each bit fetched by one funnel
+//    rotation that puts it where the word wants it (bit 2jp for d1,
+//    2jp + 1 for d0) and merged under a constant mask;
+//    p1[ph] = rotr5(lane >> 1, ph), p0[ph] = rotr5(lane >> 2, ph)
+//    (k3_pack_positions).  The u16 core calls it as soon as a pair's two
+//    steps are voted (0.338 ms against 0.348 after the tile).
 //  * k3_pack_imad, multiplies: x * 2^(31 - p) puts bit p at bit 31 and
 //    hi(y * 2) takes it (IMAD, IMAD.HI), so the pack runs beside the
 //    float core's integer work; m1[ph] = 2^(31 - p1 - rotr5(16, ph)) and
@@ -469,35 +354,6 @@ __device__ __forceinline__ void k3_word0(
 //    of a pair's candidate bits at 31, and a multiplier chosen by d1
 //    moves the wanted one there.  After the tile (0.444 ms against 0.475
 //    with k3_pack_pair, 0.490 with it in the steps).
-
-// x rotated right by k (mod 32)
-__device__ __forceinline__ unsigned rotr32(unsigned x, unsigned k) {
-  return __funnelshift_r(x, x, k);
-}
-
-__device__ __forceinline__ void k3_pack_pair(unsigned w1, unsigned w0, int jp,
-                                             const int (&p1)[kFwPhases],
-                                             const int (&p0)[kFwPhases],
-                                             unsigned& acc_a,
-                                             unsigned& acc_b) {
-  const int ph1 = (2 * jp + 1) % kFwPhases, ph0 = (2 * jp) % kFwPhases;
-  const int c = 4 - ph0;                           // d1's bit in q >> 1
-  const int s1 = 16 >> ph1;                        // rotr5(16, ph1)
-  const int s0 = rotl5(8, -ph0);                   // rotr5(8, ph0)
-  // bit 2jp: d1 of state lane; bit 2jp + s1: of state lane + 32
-  const unsigned ta = rotr32(w1, p1[ph1] - 2 * jp);
-  const unsigned tb = rotr32(ta, s1);
-  const unsigned ca =
-      (2 * jp >= c ? ta >> (2 * jp - c) : ta << (c - 2 * jp)) & (1u << c);
-  const unsigned cb =
-      (2 * jp >= c ? tb >> (2 * jp - c) : tb << (c - 2 * jp)) & (1u << c);
-  // bit 2jp + 1: d0
-  const unsigned ya = rotr32(w0, ca + p0[ph0] - (2 * jp + 1));
-  const unsigned yb = rotr32(w0, cb + p0[ph0] + s0 - (2 * jp + 1));
-  const unsigned m1 = 1u << (2 * jp), m0 = 2u << (2 * jp);
-  acc_a |= (ta & m1) | (ya & m0);
-  acc_b |= (tb & m1) | (yb & m0);
-}
 
 __device__ __forceinline__ void k3_pack_imad(const uint2* __restrict__ v,
                                              const unsigned (&m1)[kFwPhases],
@@ -567,58 +423,40 @@ forward_acs_words(const typename S::Pair* __restrict__ soft,   // [B, T2]
     return;
   }
 
-  // K1's tile-start layout: lane L holds new states 2v and 2v + 1,
-  // v = rotl5(L, -1); word 0 left state s in lane s & 31, half s >> 5
-  const int v = rotl5(lane, -1);
-  const int src = (2 * v) & 31;
-  const bool upper = v >> 4;
-  const M0 xl = __shfl_sync(kFull, pm_lo, src);
-  const M0 xh = __shfl_sync(kFull, pm_hi, src);
-  const M0 yl = __shfl_sync(kFull, pm_lo, src + 1);
-  const M0 yh = __shfl_sync(kFull, pm_hi, src + 1);
-  const M0 m_even = upper ? xh : xl, m_odd = upper ? yh : yl;
-
-  // By phase: the lane's butterfly signs, whether it keeps its high half
-  // after a step of that phase (its exchanged lane bit), K1's byte
-  // selectors, and the pack's bit positions or multipliers
-  int sg[kFwPhases], p1[kFwPhases], p0[kFwPhases], pat[kFwPhases];
+  // From tile 1 on: K1's core in its tile-start layout (lane L holds new
+  // states 2v and 2v + 1, v = rotl5(L, -1); word 0 left state s in lane
+  // s & 31, half s >> 5), on u16x2 metrics (U16Core) or, under f32, on
+  // float metrics with the lane's butterfly row of the branch-metric
+  // table (bit k: sign k < 0), whether it keeps its high half after a
+  // step of a phase (its exchanged lane bit) and the pack's multipliers,
+  // by phase
+  U16Core core;
+  int p1[kFwPhases], p0[kFwPhases], pat[kFwPhases];
   unsigned m1[kFwPhases], m0[kFwPhases];
   bool up[kFwPhases];
-  unsigned sel_lo[kFwPhases], sel_hi[kFwPhases];
-#pragma unroll
-  for (int p = 0; p < kFwPhases; ++p) {
-    sg[p] = bsigns[rotl5(lane, p)];
-    // f32: the lane's row of the branch-metric table (bit k: sign k < 0)
-    pat[p] = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      pat[p] |= ((sg[p] >> (8 * k + 7)) & 1) << k;
-    up[p] = (lane >> (4 - p)) & 1;
-    sel_lo[p] = up[p] ? 0x7676u : 0x1010u;
-    sel_hi[p] = up[p] ? 0x3232u : 0x5454u;
-    p1[p] = rotl5(lane >> 1, -p);
-    p0[p] = rotl5(lane >> 2, -p);
-    m1[p] = 1u << (31 - p1[p] - (16 >> p));
-    m0[p] = 1u << (31 - p0[p] - rotl5(8, -p) - (16 >> p));
-    // kept in registers (see K1)
-    if constexpr (kF32)
-      asm volatile("" : "+r"(m1[p]), "+r"(m0[p]), "+r"(pat[p]));
-    else
-      asm volatile("" : "+r"(sel_lo[p]), "+r"(sel_hi[p]), "+r"(p1[p]),
-                   "+r"(p0[p]));
-  }
-  const int back = rotl5(lane, -((kFwTile - 1) % kFwPhases + 1));
-  unsigned n = 0;
   float f_lo = 0.f, f_hi = 0.f;
   if constexpr (kF32) {
-    f_lo = m_even;
-    f_hi = m_odd;
+    k1_tile_start(pm_lo, pm_hi, lane, f_lo, f_hi);
+#pragma unroll
+    for (int p = 0; p < kFwPhases; ++p) {
+      const int sg = bsigns[rotl5(lane, p)];
+      pat[p] = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pat[p] |= ((sg >> (8 * k + 7)) & 1) << k;
+      up[p] = (lane >> (4 - p)) & 1;
+      p1[p] = rotl5(lane >> 1, -p);
+      p0[p] = rotl5(lane >> 2, -p);
+      m1[p] = 1u << (31 - p1[p] - (16 >> p));
+      m0[p] = 1u << (31 - p0[p] - rotl5(8, -p) - (16 >> p));
+      // kept in registers (see K1)
+      asm volatile("" : "+r"(m1[p]), "+r"(m0[p]), "+r"(pat[p]));
+    }
   } else {
-    // relative to state 0, exact: live metrics differ by at most 12 * 508
-    const M0 ref = __shfl_sync(kFull, pm_lo, 0);
-    n = (kLive + static_cast<int>(m_even - ref)) |
-        ((kLive + static_cast<int>(m_odd - ref)) << 16);
+    core.init(bsigns, lane);
+    k3_pack_positions(lane, p1, p0);
+    core.start(pm_lo, pm_hi, lane);
   }
+  const int back = rotl5(lane, -((kFwTile - 1) % kFwPhases + 1));
 
   const Step* st = reinterpret_cast<const Step*>(s);
   const int T = 2 * T2;                          // trellis steps, padded
@@ -644,24 +482,16 @@ forward_acs_words(const typename S::Pair* __restrict__ soft,   // [B, T2]
     __syncwarp();
     const int t_next = t0 + kFwTile + lane;
     w = (t_next < T) ? st[t_next] : zero;
-    if (k > 1) {
-      if constexpr (kF32) {
+    unsigned acc_a = 0, acc_b = 0;
+    if constexpr (kF32) {
+      if (k > 1) {
         f_lo = __shfl_sync(kFull, f_lo, back);
         f_hi = __shfl_sync(kFull, f_hi, back);
-      } else {
-        n = __shfl_sync(kFull, n, back);
-        const unsigned z = __shfl_sync(kFull, n, 0) & 0xffffu;
-        n += (kLive - z) * 0x10001u;
       }
-    }
-    unsigned acc_a = 0, acc_b = 0, w0 = 0;
-    int4 x4;
 #pragma unroll
-    for (int j = 0; j < kFwTile; ++j) {
-      const int phase = j % kFwPhases;
-      const int prev = (j + kFwPhases - 1) % kFwPhases;
-      unsigned dec_lo, dec_hi;
-      if constexpr (kF32) {
+      for (int j = 0; j < kFwTile; ++j) {
+        const int phase = j % kFwPhases;
+        const int prev = (j + kFwPhases - 1) % kFwPhases;
         const float b = bms[warp][pat[phase]][j];
         const float send = up[prev] ? f_lo : f_hi;
         const float recv = __shfl_xor_sync(kFull, send, 16 >> prev);
@@ -672,35 +502,24 @@ forward_acs_words(const typename S::Pair* __restrict__ soft,   // [B, T2]
         const bool d_lo = c0 > a0, d_hi = c1 > a1;   // ties keep branch 0
         f_lo = d_lo ? c0 : a0;
         f_hi = d_hi ? c1 : a1;
-        dec_lo = __ballot_sync(kFull, d_lo);
-        dec_hi = __ballot_sync(kFull, d_hi);
-      } else {
-        if (j % 4 == 0) x4 = *reinterpret_cast<const int4*>(buf + j);
-        const int x = j % 4 == 0 ? x4.x : j % 4 == 1 ? x4.y
-                    : j % 4 == 2 ? x4.z : x4.w;
-        const unsigned other = __shfl_xor_sync(kFull, n, 16 >> prev);
-        const unsigned lo = __byte_perm(n, other, sel_lo[prev]);
-        const unsigned hi = __byte_perm(n, other, sel_hi[prev]);
-        const unsigned b = static_cast<unsigned>(__dp4a(x, sg[phase], 0));
-        const unsigned a = lo + b * 0xffff0001u;   // (lo + b, lo - b)
-        const unsigned c = hi + b * 0x0000ffffu;   // (hi - b, hi + b)
-        bool a_hi, a_lo;                           // branch 0 kept (a >= c)
-        n = __vibmax_u16x2(a, c, &a_hi, &a_lo);
-        dec_lo = __ballot_sync(kFull, !a_lo);
-        dec_hi = __ballot_sync(kFull, !a_hi);
+        const unsigned dec_lo = __ballot_sync(kFull, d_lo);
+        const unsigned dec_hi = __ballot_sync(kFull, d_hi);
+        if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);
       }
-      if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);
-      if constexpr (!kF32) {
-        // pair j / 2 as soon as its two steps are voted
-        if (j % 2 == 0)
-          w0 = ((lane >> 1) & 1) ? dec_hi : dec_lo;
-        else
-          k3_pack_pair((lane & 1) ? dec_hi : dec_lo, w0, j / 2, p1, p0,
-                       acc_a, acc_b);
-      }
+      __syncwarp();
+      k3_pack_imad(ds[warp], m1, m0, lane, acc_a, acc_b);
+    } else {
+      if (k > 1) core.renorm();
+      core.tile(buf, lane,
+                [&](int j, unsigned dec_lo, unsigned dec_hi) {
+                  if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);
+                },
+                [&](int jp, unsigned w1, unsigned w0) {
+                  // pair jp as soon as its two steps are voted
+                  k3_pack_pair(w1, w0, jp, p1, p0, acc_a, acc_b);
+                });
+      __syncwarp();
     }
-    __syncwarp();
-    if constexpr (kF32) k3_pack_imad(ds[warp], m1, m0, lane, acc_a, acc_b);
     if (k == W - 1) {
       const int pairs = T2 - k * kPairsPerWord;  // 1 .. 16
       if (pairs < kPairsPerWord) {

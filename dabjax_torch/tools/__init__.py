@@ -14,12 +14,17 @@ them is on the receiver's path.
 Run one on a card as ``python -m dabjax_torch.tools.<name>``: it prints
 one line per case (ms, and Mb/s or GB/s) and exits non-zero when there is
 no card.  Times are CUDA events around repeated launches after a
-warm-up.
+warm-up: :func:`cuda_ms` for calls that keep the device busy longer
+than the host takes to issue them, :func:`device_ms` for short ones
+(under about 50 us a call), whose back-to-back calls :func:`cuda_ms`
+would time at the host's issue rate (about 30 us a call through a
+wrapper on an H100 host).
 """
 
 from __future__ import annotations
 
 import sys
+import time
 
 import numpy as np
 import torch
@@ -61,3 +66,45 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+#: the device sleep's cycles a second of sleep (the H100's top SM clock is
+#: 1.98 GHz; at a lower clock the sleep only lasts longer)
+_SLEEP_HZ = 2e9
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls: the calls are
+    enqueued behind a device sleep (``torch.cuda._sleep``), the start
+    event recorded after the sleep, so the device runs them back to back
+    however slowly the host issues them.  The sleep is sized from the
+    host's time to issue one call (four times ``reps`` of it, plus 2 ms),
+    and checked: if the start event has completed by the time the host
+    has issued the last call, the device waited on the host and the
+    reading is not taken; the run is repeated once with a sleep four
+    times as long, and raises ``RuntimeError`` if it waits again.  The
+    ``reps`` calls' launches must fit in the launch queue (about a
+    thousand): on a full queue the host waits for the sleeping device,
+    and the check fails however long the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    issue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    sleep_s = 2e-3 + 4 * reps * issue
+    for attempt in range(2):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * _SLEEP_HZ))
+        t0.record()
+        for _ in range(reps):
+            fn()
+        waited = t0.query()             # the sleep was over already
+        t1.record()
+        torch.cuda.synchronize()
+        if not waited:
+            return t0.elapsed_time(t1) / reps
+        sleep_s *= 4
+    raise RuntimeError(f"device_ms: the device sleep of {sleep_s / 4:.4f} s "
+                       f"ended before the host had issued {reps} calls")

@@ -253,10 +253,13 @@ def probe(name: str, k: int, lb: int, steps: int, mode: str = "dot",
           dtype: str = "float32", impl: str = "kernel",
           reps: int = 20) -> float:
     """ms of one call of ``steps`` steps on the TPU probe's inputs, on the
-    first card, by the kernel or the plain version (``impl``)."""
+    first card: the kernel's device time, or the plain version's (``impl``)
+    by events alone (its two launches a step, ``reps`` calls over, would
+    fill the launch queue behind a device sleep; it is host-bound)."""
     s, x = _device_inputs(k, lb, steps, dtype)
-    fn = dot_steps_cuda if impl == "kernel" else dot_steps_torch
-    return tools.cuda_ms(lambda: fn(s, x, mode), reps)
+    if impl == "kernel":
+        return tools.device_ms(lambda: dot_steps_cuda(s, x, mode), reps)
+    return tools.cuda_ms(lambda: dot_steps_torch(s, x, mode), reps)
 
 
 def probe_batched(name: str, k: int, lb: int, steps: int,
@@ -267,7 +270,7 @@ def probe_batched(name: str, k: int, lb: int, steps: int,
     s, x = (t.to(torch.device("cuda", 0))
             for t in batched_inputs(k, lb, steps, dtype))
     fn = dot_batched_cuda if impl == "kernel" else dot_batched_torch
-    per = tools.cuda_ms(lambda: fn(s, x), reps) * 1e3 / steps
+    per = tools.device_ms(lambda: fn(s, x), reps) * 1e3 / steps
     print(f"{name:28s} K={k:3d} LB={lb:5d} {impl:6s}: {per:7.3f} us/step "
           f"{_tflops(k, lb, 'dot', per):6.1f} TF/s", flush=True)
     return per

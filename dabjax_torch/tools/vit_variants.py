@@ -36,11 +36,12 @@ import numpy as np
 import torch
 
 from dabjax_torch import _build, tools
-from dabjax_torch.fec import viterbi_cuda
+from dabjax_torch.fec import viterbi, viterbi_cuda
 
 __all__ = ["MODES", "CHUNKS", "pair_steps", "plane_soft",
-           "forward_plane_cuda", "forward_plane_torch", "pack_words",
-           "reset_launches", "main"]
+           "forward_plane_cuda", "forward_plane_torch",
+           "forward_plane_lanes_torch", "pack_words", "reset_launches",
+           "main"]
 
 #: the modes, in the kernel's code order
 MODES = ("full", "dot_only", "no_acs")
@@ -103,20 +104,35 @@ def forward_plane_cuda(x: torch.Tensor, T2: int, mode: str = "full",
                        chunk: int = 8, unroll: bool = False) -> torch.Tensor:
     """The kernel: pair-step soft float32 [B, Tp2, K] -> int8 plane
     [Tp2, 64, B] of ``mode`` (a view of the kernel's [B, Tp2, 64]
-    output); ``unroll`` unrolls the ``chunk`` steps of a chunk."""
+    output).
+
+    ``full`` runs K3's core after its first 16 pair steps: it is exact,
+    equal to :func:`forward_plane_torch`, when every soft value (hi + lo
+    with ksplit) is an integer in [-127, 127], as :func:`plane_soft` of
+    int8-valued soft bits gives them (hi is then 0); the kernel converts
+    each trellis step's values to int8, so other input gives other bytes.
+    ``dot_only`` and ``no_acs`` keep float arithmetic (equal to the plain
+    version wherever its sums are exact, as on integer-valued input).
+    The kernel works in tiles of 16 pair steps whatever ``chunk``, which
+    only has to divide Tp2 (the padding :func:`plane_soft` gave);
+    ``unroll`` unrolls the pair-step loop of a tile in ``dot_only`` and
+    ``no_acs`` and changes nothing in ``full``."""
     global LAUNCHES
     viterbi_cuda._require(x, torch.float32, 3, "forward_plane_cuda")
     _check_input(x, mode, chunk)
+    if x.data_ptr() % 16:                    # the kernel copies 16 bytes
+        x = x.clone()
     B, Tp2, K = x.shape
     plane = torch.empty((B, Tp2, 64), dtype=torch.int8, device=x.device)
     if B:
         lib = _build.load_library()
-        signs = viterbi_cuda._signs4(x.device, "f32")
+        signs = viterbi_cuda._signs4(x.device, "i8")
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.dabjax_probe_forward_plane(
-                x.data_ptr(), signs.data_ptr(), plane.data_ptr(), B, Tp2, T2,
-                MODES.index(mode), K, chunk, int(unroll), stream)
+                x.data_ptr(), signs.data_ptr(),
+                viterbi_cuda._signs(x.device).data_ptr(), plane.data_ptr(),
+                B, Tp2, T2, MODES.index(mode), K, int(unroll), stream)
             LAUNCHES += 1
         viterbi_cuda._check(rc, "forward_plane_cuda")
     return plane.permute(1, 2, 0)
@@ -160,6 +176,83 @@ def forward_plane_torch(x: torch.Tensor, T2: int, mode: str = "full",
             plane[t] = ((d0.to(torch.int8) << 1) | d1.to(torch.int8)
                         if t < T2 else 0)
     return plane.permute(0, 2, 1)
+
+
+def _plane_bytes(votes: torch.Tensor, lane: torch.Tensor) -> torch.Tensor:
+    """The kernel's byte pack (``plane_pack_pair``): a tile's ballot words
+    int64 [B, TILE, 2] (K1's rotated layout) -> its pair steps' bytes
+    int64 [B, TILE / 2, 64].  Lane l makes the bytes of states l and
+    l + 32 from the vote words K3's pack reads (d1: step 2j + 1, word
+    l & 1; d0: step 2j, word (l >> 1) & 1), each bit rotated to its place
+    in the byte (d1 to bit 0, d0 to bit 1): d1 from K1's position
+    rotr5(n >> 1, ph1), d0 from rotr5(n >> 2, ph0) plus d1 at the bit it
+    sets in q >> 1, q = (n >> 1) | (d1 << 5)."""
+    vc = viterbi_cuda
+    rot = viterbi._rotr32
+    p1 = [vc.rotl5(lane >> 1, -ph) for ph in range(vc.PHASES)]
+    p0 = [vc.rotl5(lane >> 2, -ph) for ph in range(vc.PHASES)]
+    out = torch.zeros((votes.shape[0], vc.TILE // 2, 64), dtype=torch.int64,
+                      device=votes.device)
+    for jp in range(vc.TILE // 2):
+        ph1, ph0 = (2 * jp + 1) % vc.PHASES, (2 * jp) % vc.PHASES
+        c, s1, s0 = 4 - ph0, 16 >> ph1, vc.rotl5(8, -ph0)
+        w1 = votes[:, 2 * jp + 1, lane & 1]                  # [B, 32]
+        w0 = votes[:, 2 * jp, (lane >> 1) & 1]
+        ta = rot(w1, p1[ph1])
+        tb = rot(ta, s1)
+        ya = rot(w0, ((ta & 1) << c) + p0[ph0] - 1)
+        yb = rot(w0, ((tb & 1) << c) + p0[ph0] + s0 - 1)
+        out[:, jp, :32] = (ta & 1) | (ya & 2)
+        out[:, jp, 32:] = (tb & 1) | (yb & 2)
+    return out
+
+
+def forward_plane_lanes_torch(x: torch.Tensor, T2: int,
+                              chunk: int = 8) -> torch.Tensor:
+    """The ``full`` kernel's own arithmetic and layout, lane by lane:
+    pair-step soft float32 [B, Tp2, K] -> int8 plane [Tp2, 64, B], as
+    :func:`forward_plane_torch` gives it for soft values (hi + lo) that
+    are integers in [-127, 127].
+
+    A model of the kernel for the tests, in its tiles of 16 pair steps
+    (zeros past Tp2).  Each trellis step's four values become int8
+    (rounded, the low byte kept, as the kernel converts them).  Tile 0 is
+    the radix-4 recursion in float32 from 0 / -1e9 with one rounded add a
+    candidate, on those int8 values.  From tile 1 on, K1's core runs on
+    u16x2 metrics (``viterbi._u16_tile``), started from tile 0's metrics
+    relative to state 0 in K1's tile-start layout and put back at
+    ``METRIC_LIVE`` between tiles (``viterbi._tile_start``);
+    :func:`_plane_bytes` turns each tile's votes into bytes.  Pair steps
+    >= T2 are 0."""
+    _check_input(x, "full", chunk)
+    vc = viterbi_cuda
+    B, Tp2, K = x.shape
+    dev = x.device
+    lane = torch.arange(32, device=dev)
+    s8 = x[..., :8] + x[..., 8:] if K == 16 else x          # exact
+    tiles = -(-Tp2 // 16)
+    s8 = torch.nn.functional.pad(s8, (0, 0, 0, 16 * tiles - Tp2))
+    q = ((torch.round(s8).to(torch.int64) + 128) & 255) - 128
+    plane = torch.zeros((B, 16 * tiles, 64), dtype=torch.int64, device=dev)
+    pm, plane[:, :16], _ = viterbi._radix4_steps(
+        viterbi._radix4_start(q, "i8"), q[:, :16])
+    if tiles > 1:
+        v = vc.rotl5(lane, -1)
+        pair = torch.stack([pm[:, 2 * v], pm[:, 2 * v + 1]])  # [2, B, 32]
+        rel = (pair - pm[:, :1]).to(torch.int64) + vc.METRIC_LIVE
+        n = rel[0] | (rel[1] << 16)
+        sg = torch.as_tensor(vc.butterfly_signs().astype(np.int64),
+                             device=dev)
+        steps = q.reshape(B, 32 * tiles, 4)
+        for k in range(1, tiles):
+            if k > 1:
+                n = viterbi._tile_start(n, lane)
+            n, votes = viterbi._u16_tile(n, steps[:, 32 * k: 32 * k + 32],
+                                         lane, sg)
+            plane[:, 16 * k: 16 * k + 16] = _plane_bytes(votes, lane)
+    plane = plane[:, :Tp2]
+    plane[:, T2:] = 0
+    return plane.to(torch.int8).permute(1, 2, 0)
 
 
 def pack_words(plane: torch.Tensor) -> torch.Tensor:

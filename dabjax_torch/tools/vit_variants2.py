@@ -15,7 +15,9 @@ and m[r] = pm[r >> 2] + bm[r] (one round-to-nearest float add) over the
 * ``full``: K3's 2-bit branch e = (d0 << 1) | d1 at bits 2j..2j+1, over
   every one of the Tp2 pair steps of the zero-padded input (no T2 mask).
 
-:func:`forward_words_stage_cuda` runs the kernel (``csrc/probes.cu``),
+:func:`forward_words_stage_cuda` runs the kernel (``csrc/probes.cu``) in
+the first three modes and K3 "i8" itself (``csrc/viterbi.cu``) in
+``full``,
 :func:`forward_words_stage_torch` is its plain version; both take the
 pair-step soft of :func:`padded_pair_soft` [B, Tp2, 8] int8 and return
 words int32 [W, 64, B].  ``main()`` times every mode, kernel and plain,
@@ -36,13 +38,16 @@ import torch
 from dabjax_torch import _build, tools
 from dabjax_torch.fec import viterbi_cuda
 
-__all__ = ["MODES", "padded_pair_soft", "forward_words_stage_cuda",
-           "forward_words_stage_torch", "mask_padding", "reset_launches",
-           "main"]
+__all__ = ["MODES", "KERNEL_MODES", "padded_pair_soft",
+           "forward_words_stage_cuda", "forward_words_stage_torch",
+           "mask_padding", "reset_launches", "main"]
 
 #: the stages, in the order they are added (the kernel's ``stage`` code)
 MODES = ("dot_store", "repadd", "maxtree", "full")
+#: the stages the stage-stripped kernel runs (``full`` is K3's)
+KERNEL_MODES = MODES[:3]
 #: launches of the stage-stripped forward kernel since the last reset
+#: (K3's launches in ``full`` count as K3's)
 LAUNCHES = 0
 
 _PAIRS_PER_WORD = 16
@@ -76,10 +81,16 @@ def _check_input(x: torch.Tensor, mode: str) -> None:
 
 def forward_words_stage_cuda(x: torch.Tensor, mode: str) -> torch.Tensor:
     """The kernel: pair-step soft int8 [B, Tp2, 8] -> words int32
-    [W, 64, B] of ``mode`` (a view of the kernel's [B, W, 64] output)."""
+    [W, 64, B] of ``mode`` (a view of the kernel's [B, W, 64] output).
+    ``full`` is K3 "i8" on the padded input, whose T2 is then Tp2: no
+    pair step is masked."""
     global LAUNCHES
     viterbi_cuda._require(x, torch.int8, 3, "forward_words_stage_cuda")
     _check_input(x, mode)
+    if mode == "full":
+        return viterbi_cuda.viterbi_forward_words_cuda(x, "i8")[0]
+    if x.data_ptr() % 16:                    # the kernel copies 16 bytes
+        x = x.clone()
     B, Tp2, _ = x.shape
     dec = torch.empty((B, Tp2 // _PAIRS_PER_WORD, 64), dtype=torch.int32,
                       device=x.device)

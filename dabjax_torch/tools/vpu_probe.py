@@ -22,12 +22,12 @@ counts the SASS instructions each op adds in the built library.
 ``main()`` prints, for each dtype and op on a [512, 4480] tile, the
 per-op us and Gelem/s from the slope between n = 8 and 64 (the TPU
 probe's), kernel and plain; the kernel line adds the slope between
-n = 512 and 2048.  At n <= 64 the device work (one read and one write
-of the tile, a few microseconds) is shorter than the host's time to
-issue one call through the wrapper (about 30 us a call on an H100 host),
-so back-to-back calls are bound by the host and that slope reads about
-0, of either sign; the long chains are bound by the issue rate of the
-op's pipe.
+n = 512 and 2048.  Times are the device's (``tools.device_ms``): at
+n <= 64 a call's device work (one read and one write of the tile, a few
+microseconds) is shorter than the host's time to issue it through the
+wrapper (about 30 us on an H100 host), and back-to-back calls timed
+from the host read the host's issue rate, with slopes about 0 of either
+sign.  The long chains are bound by the issue rate of the op's pipe.
 
     python -m dabjax_torch.tools.vpu_probe
 """
@@ -170,10 +170,10 @@ def sass_op_counts(n1: int = 8, n2: int = 64) -> dict:
 
 
 def per_op(fn, n1: int, n2: int, reps: int) -> float:
-    """us per op: the slope of ``fn(n)``'s CUDA-event time from n1 to n2
-    ops."""
-    t1 = tools.cuda_ms(lambda: fn(n1), reps)
-    t2 = tools.cuda_ms(lambda: fn(n2), reps)
+    """us per op: the slope of ``fn(n)``'s device time
+    (``tools.device_ms``) from n1 to n2 ops."""
+    t1 = tools.device_ms(lambda: fn(n1), reps)
+    t2 = tools.device_ms(lambda: fn(n2), reps)
     return (t2 - t1) / (n2 - n1) * 1e3
 
 

@@ -19,8 +19,8 @@ main-path shape (4428 codewords of 2304 bits):
 
 Each variant is one ``nvcc`` of ``viterbi.cu`` alone into
 ``dabjax_torch/build/variants/``; every variant but the ``no_*`` ones
-must give the kernel's words or bits.  Times are the median (min-max) of
-4 runs of 20 calls, the variants taken in turns.
+must give the kernel's words or bits.  Times are device times, the
+median (min-max) of 4 runs of 20 calls, the variants taken in turns.
 
     python -m dabjax_torch.tools.word_variants
 """
@@ -40,19 +40,25 @@ from dabjax_torch.fec import viterbi_cuda
 __all__ = ["K3_VARIANTS", "variant_source", "main"]
 
 _KERNEL = "template <typename M0, typename S, bool kF32, int kMinBlocks>"
-_FUSED = """      if constexpr (!kF32) {
-        // pair j / 2 as soon as its two steps are voted
-"""
-_FUSED_BLOCK = _FUSED + """        if (j % 2 == 0)
+#: the u16 core's pack of a pair, in its steps
+_PAIR = "                  k3_pack_pair(w1, w0, jp, p1, p0, acc_a, acc_b);\n"
+#: the end of the u16 core's tile
+_U16_END = "      __syncwarp();\n    }\n    if (k == W - 1) {"
+_IMAD = "      k3_pack_imad(ds[warp], m1, m0, lane, acc_a, acc_b);"
+_ROT = "k3_pack_rot(ds[warp], p1, p0, lane, acc_a, acc_b);"
+#: the float core's votes of a step, and its tile's accumulators
+_F32_VOTE = ("\n        if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);"
+             "\n      }")
+_F32_ACC = "    unsigned acc_a = 0, acc_b = 0;\n    if constexpr (kF32) {"
+_F32_IN_STEPS = """
+        if (lane == 0) ds[warp][j] = make_uint2(dec_lo, dec_hi);
+        if (j % 2 == 0)
           w0 = ((lane >> 1) & 1) ? dec_hi : dec_lo;
         else
           k3_pack_pair((lane & 1) ? dec_hi : dec_lo, w0, j / 2, p1, p0,
                        acc_a, acc_b);
-      }
-"""
-_IMAD = ("    if constexpr (kF32) k3_pack_imad(ds[warp], m1, m0, lane, acc_a,"
-         " acc_b);")
-_ROT = "k3_pack_rot(ds[warp], p1, p0, lane, acc_a, acc_b);"
+      }"""
+_FROM_VOTES = "      acc_a = ds[warp][lane].x;\n      acc_b = ds[warp][lane].y;"
 _WORD0 = ("  k3_word0<M0, S>(s, signs, d, min(kPairsPerWord, T2), start, lane,"
           " pm_lo,\n                  pm_hi, da0);")
 #: the rotation pack of a whole tile from its vote words in shared memory
@@ -73,14 +79,16 @@ _WITH_ROT = (_KERNEL, _PACK_ROT + _KERNEL)
 
 #: name -> [(text, replacement), ...] applied to viterbi.cu in order
 K3_VARIANTS = {
-    "pack_after_tile": [_WITH_ROT, (_FUSED_BLOCK, ""),
-                        (_IMAD, _IMAD + "\n    else " + _ROT)],
-    "f32_rotations": [_WITH_ROT, (_IMAD, "    if constexpr (kF32) " + _ROT)],
-    "f32_rotations_in_steps": [(_FUSED, _FUSED.replace("!kF32", "true")),
-                               (_IMAD, "")],
-    "no_pack": [(_FUSED_BLOCK, ""),
-                (_IMAD, "    acc_a = ds[warp][lane].x;\n"
-                        "    acc_b = ds[warp][lane].y;")],
+    "pack_after_tile": [_WITH_ROT, (_PAIR, ""),
+                        (_U16_END, _U16_END.replace(
+                            "    }", "      " + _ROT + "\n    }", 1))],
+    "f32_rotations": [_WITH_ROT, (_IMAD, "      " + _ROT)],
+    "f32_rotations_in_steps": [
+        (_F32_ACC, _F32_ACC.replace("acc_b = 0;", "acc_b = 0, w0 = 0;")),
+        (_F32_VOTE, _F32_IN_STEPS), (_IMAD, "")],
+    "no_pack": [(_PAIR, ""), (_IMAD, _FROM_VOTES),
+                (_U16_END, _U16_END.replace(
+                    "    }", _FROM_VOTES + "\n    }", 1))],
     "no_word0": [(_WORD0, "  pm_lo = lane ? start : M0(0);\n"
                           "  pm_hi = start;")],
 }
@@ -171,7 +179,7 @@ def variant_source(src: str, edits) -> str:
     text must be found)."""
     for old, new in edits:
         if old not in src:
-            raise ValueError(f"variant text not in viterbi.cu: {old[:60]!r}")
+            raise ValueError(f"variant text not in the source: {old[:60]!r}")
         src = src.replace(old, new)
     return src
 
@@ -199,11 +207,12 @@ def _build_variant(name: str, text: str) -> ctypes.CDLL:
 
 
 def _in_turns(fns: dict) -> dict:
-    """{name: (median, min, max)} ms of 4 runs of 20 calls, in turns."""
+    """{name: (median, min, max)} device ms (``tools.device_ms``) of 4
+    runs of 20 calls, in turns."""
     times = {name: [] for name in fns}
     for run in range(4):
         for name in (list(fns) if run % 2 == 0 else list(fns)[::-1]):
-            times[name].append(tools.cuda_ms(fns[name], 20))
+            times[name].append(tools.device_ms(fns[name], 20))
     return {name: (statistics.median(v), min(v), max(v))
             for name, v in times.items()}
 

@@ -14,6 +14,8 @@ from dabjax_torch.fec import conv, viterbi, viterbi_cuda as vc
 from dabjax_torch.fec.viterbi import viterbi_decode_np
 from dabjax_torch.tools import hbm_probe
 from dabjax_torch.tools import vit_dotshapes as vd
+from dabjax_torch.tools import vit_variants as vv
+from dabjax_torch.tools import vit_variants2 as vv2
 from dabjax_torch.tools import vpu_probe2
 
 
@@ -211,6 +213,52 @@ def test_dots_kernel_matches_plain_on_card():
         for n in vpu_probe2.DOT_NS:
             assert torch.equal(vpu_probe2.dots_cuda(x, w, n),
                                vpu_probe2.dots_torch(x, w, n))
+
+
+#: (B, nbits) of the redesigned forward probes' checks: one codeword, a
+#: block of four and either side of a warp multiple, and the main path's
+#: MSC shape
+PROBE_SHAPES = [(1, 100), (3, 101), (31, 768), (33, 2304), (4428, 2304)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [False, True], ids=["loop", "unrolled"])
+@pytest.mark.parametrize("chunk", vv.CHUNKS)
+@pytest.mark.parametrize("mode", vv.MODES)
+@pytest.mark.parametrize("B,nbits", PROBE_SHAPES)
+def test_plane_kernel_matches_plain_on_card(B, nbits, mode, chunk, unroll):
+    """P4 (``forward_plane``) byte for byte against its plain version,
+    ksplit on and off; ``full`` packs to K3 "i8"'s words."""
+    dev = _card()
+    soft = torch.from_numpy(_soft(B, nbits, seed=B * 31 + nbits)).to(dev)
+    T2, _ = vv.pair_steps(nbits, chunk)
+    for ksplit in (True, False):
+        x = vv.plane_soft(soft, nbits, chunk, ksplit)
+        got = vv.forward_plane_cuda(x, T2, mode, chunk, unroll)
+        want = vv.forward_plane_torch(x, T2, mode, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        if mode == "full":
+            k3, _ = viterbi.viterbi_forward_words_torch(soft, nbits, "i8")
+            assert torch.equal(vv.pack_words(got), k3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", vv2.MODES)
+@pytest.mark.parametrize("B,nbits", PROBE_SHAPES)
+def test_stage_kernel_matches_plain_on_card(B, nbits, mode):
+    """P1 (``forward_words_stage``) word for word against its plain
+    version; ``full`` equals K3 "i8" below T2."""
+    dev = _card()
+    soft = torch.from_numpy(_soft(B, nbits, seed=B * 37 + nbits)).to(dev)
+    x = vv2.padded_pair_soft(soft, nbits)
+    got = vv2.forward_words_stage_cuda(x, mode)
+    want = vv2.forward_words_stage_torch(x, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if mode == "full":
+        k3, _ = viterbi.viterbi_forward_words_torch(soft, nbits, "i8")
+        assert torch.equal(vv2.mask_padding(got, -(-(nbits + 6) // 2)), k3)
 
 
 @pytest.fixture(scope="module")
