@@ -87,12 +87,16 @@ non-zero exit at the first failure:
     f32 and bf16, the chained dots of ``vpu_probe2`` at its three shapes)
     against their plain versions, within ``DOT_TOL`` on the TPU probes'
     standard-normal inputs and bit for bit on integer inputs, with the
-    FFMA / HMMA of one step and one dot (each at least the products it
-    must issue); each timed beside its plain version and, for the dot
-    shapes, one ``torch.matmul`` of the same shape (the batched product
-    also at a tail width, N 4488, and beside ``torch.mm`` with f32 out,
-    its bf16 kernel's HGMMA counted in the SASS); the copy kernel against
-    ``torch.mul`` over 7 interleaved runs; then each probe's ``main()`` in
+    FFMA / HMMA of one step and one dot (each at least the products its
+    thread tile must compute); each timed beside its plain version and, for
+    the dot shapes, one ``torch.matmul`` of the same shape (the step loop
+    in f32 and bf16, per step, the bf16 one beside ``torch.mm`` with f32
+    out; the batched product also at a tail width, N 4488, and beside
+    ``torch.mm`` with f32 out, its bf16 kernel's HGMMA counted in the
+    SASS), the run failing if the f32 step loop (K 16, LB 4480) or the
+    [256, 8] chained dots take more than ``DOT_GATES_US`` per step or
+    per dot (medians of 5 slopes, beside the SM clock); the copy kernel
+    against ``torch.mul`` over 7 interleaved runs; then each probe's ``main()`` in
     process, one printed line per case;
 11. mesh: the multi-device path (``dabjax_torch.parallel``) on a (2, 4)
     mesh whose 8 positions are all the one card: the sharded step on
@@ -1208,6 +1212,20 @@ def _short_call(kernel, plain, what: str) -> dict:
 DOT_TOL = 1e-5
 #: a batched-product width that ends in a partial 64-column tile
 BATCHED_TAIL_N = 4488
+#: gates of the redesigned dot probes, us (medians of 5 slopes): D1 (f32
+#: dot, K 16, LB 4480, per step between 32 and 256 steps; 0.9316) and D5
+#: ([256, 8] @ [8, 4480], per dot between 40 and 1000 dots; 0.4093), each
+#: at 1.3x its median on an H100 at 700 W, 1980 MHz (PERF.md section 6)
+DOT_GATES_US = {"dot_steps": 1.21, "dots_chain": 0.53}
+
+
+def _per_slope(ms_of, n1: int, n2: int, runs: int = 5) -> dict:
+    """{median, min, max, runs_ms}: ms per unit, the slope of ``ms_of(n)``
+    (the device ms of one call of length n) from n1 to n2, over ``runs``
+    runs."""
+    import statistics
+    v = sorted((ms_of(n2) - ms_of(n1)) / (n2 - n1) for _ in range(runs))
+    return dict(median=statistics.median(v), min=v[0], max=v[-1], runs_ms=v)
 
 
 def _dot_checks(dev, report):
@@ -1223,17 +1241,21 @@ def _dot_checks(dev, report):
     from dabjax_torch.tools import vit_dotshapes as vd, vpu_probe2
 
     steps_sass, dots_sass = vd.sass_counts(), vpu_probe2.dot_sass_counts()
-    want = {f"{m} f32 K={k}": 32 * k for m in ("dot", "dot_acs")
+    # D1's wide build: a thread's step is 8 rows x WIDE_COLS columns x K
+    # FFMA (3 FADD a column in repeat_add); D2 8 mma.sync a warp's step;
+    # the batched bf16 product one wgmma (HGMMA) a 64-row slab, 4 a tile
+    want = {f"{m} f32 K={k}": 8 * vd.WIDE_COLS * k for m in ("dot", "dot_acs")
             for k in vd.KS}
-    # the batched bf16 product: one wgmma (HGMMA) a 64-row slab, 4 a tile
-    want.update({"repeat_add f32": 6, "dot bf16 K=16": 8,
+    want.update({"repeat_add f32": 3 * vd.WIDE_COLS, "dot bf16 K=16": 8,
                  "batched bf16 K=16": 4})
     _check(all(steps_sass[c] >= n for c, n in want.items()),
            f"a step kernel lost work: {steps_sass}, want at least {want}")
     for rows, kdim, tag in vpu_probe2.DOT_SHAPES:
-        _check(dots_sass[tag] >= 2 * kdim * rows // 16,
-               f"dots {tag}: SASS per dot {dots_sass[tag]}, want at least "
-               f"{2 * kdim * rows // 16} FFMA a thread")
+        # a lane's rows (rows / 32) x the columns it runs together x kdim
+        # FFMA a dot
+        n = rows // 32 * vpu_probe2.DOT_GROUP[rows] * kdim
+        _check(dots_sass[tag] >= n, f"dots {tag}: SASS per dot "
+               f"{dots_sass[tag]}, want at least {n} FFMA a thread")
     print(f"probes: SASS of one step {steps_sass}; of one dot {dots_sass}")
 
     rng = np.random.default_rng(11)
@@ -1246,15 +1268,16 @@ def _dot_checks(dev, report):
         d = float((got - want).abs().max())
         return d, d / float(want.abs().max())
 
-    worst = dict(abs=0.0, rel=0.0)
-
-    def hold(got, want, what):
+    def hold(got, want, what, worst):
+        """Within DOT_TOL of plain; the largest error so far in worst."""
         if not torch.equal(got.nan_to_num(), want.nan_to_num()):
             a, r = err(got, want)
             _check(r <= DOT_TOL, f"{what}: {r:.2e} of max |plain| > "
                    f"{DOT_TOL}")
             worst["abs"], worst["rel"] = (max(worst["abs"], a),
                                          max(worst["rel"], r))
+
+    worst = {dtype: dict(abs=0.0, rel=0.0) for dtype in vd.DTYPES}
 
     for lb in vd.LBS:
         steps = vd.steps_for(lb)[1]
@@ -1265,7 +1288,7 @@ def _dot_checks(dev, report):
             if mode == "repeat_add":   # the same adds in the same order
                 _check(torch.equal(got, want),
                        f"{name} LB={lb}: repeat_add differs from plain")
-            hold(got, want, f"{name} LB={lb}")
+            hold(got, want, f"{name} LB={lb}", worst[dtype])
             si, xi = ints((256, k), 1, dtype), ints((steps, k, lb), 3, dtype)
             _check(torch.equal(vd.dot_steps_cuda(si, xi, mode),
                                vd.dot_steps_torch(si, xi, mode)),
@@ -1273,25 +1296,51 @@ def _dot_checks(dev, report):
         print(f"probes: vit_dotshapes LB={lb} steps={steps}: every case "
               f"within {DOT_TOL} of plain, exact on integer inputs")
 
-    # per step, at LB 4480, K 16, f32 dot (the TPU probe's first line),
-    # from the slope between 32 and 256 steps (the device's time)
+    # per step at LB 4480, K 16 (the TPU probe's first line, and its bf16
+    # line), from the slope between 32 and 256 steps (the device's time),
+    # the kernel's the median of 5 slopes; one library call of a step:
+    # torch.matmul (f32), torch.mm with f32 out (bf16, the kernel's
+    # function)
+    clocks = _clocks()
     s1, s2 = vd.steps_long(4480)
-    per = {}
-    for impl, reps in (("kernel", 10), ("plain", 3)):
-        t1, t2 = (vd.probe("loop dot f32", 16, 4480, n, "dot", "float32",
-                           impl, reps) for n in (s1, s2))
-        per[impl] = (t2 - t1) / (s2 - s1)
-    s, x = (t.to(dev) for t in vd.probe_inputs(16, 4480, s1))
-    steps_row = dict(
-        err=worst["abs"], rel_err=worst["rel"], tolerance=DOT_TOL,
-        ms=per["kernel"], plain_ms=per["plain"],
-        library_ms=_device_ms(lambda: torch.matmul(s, x[0]), 100),
-        sass_per_step=steps_sass, shape=(16, 4480))
-    print(f"probes: vit_dotshapes f32 dot K=16 LB=4480: kernel "
-          f"{steps_row['ms'] * 1e3:.4f} us/step (plain "
-          f"{steps_row['plain_ms'] * 1e3:.2f}, torch.matmul "
-          f"{steps_row['library_ms'] * 1e3:.2f} us a step)")
-    report["dot_steps"] = steps_row
+    timed = {}
+    for dtype, key in (("float32", "dot_steps"), ("bfloat16", "dot_bf16")):
+        kern = _per_slope(lambda n, dtype=dtype: vd.probe(
+            "loop dot", 16, 4480, n, "dot", dtype, "kernel", 10), s1, s2)
+        t1, t2 = (vd.probe("loop dot", 16, 4480, n, "dot", dtype, "plain",
+                           3) for n in (s1, s2))
+        s, x = (t.to(dev) for t in vd.probe_inputs(16, 4480, s1, dtype))
+        lib = ((lambda: torch.matmul(s, x[0])) if dtype == "float32" else
+               (lambda: torch.mm(s, x[0], out_dtype=torch.float32)))
+        timed[key] = dict(
+            err=worst[dtype]["abs"], rel_err=worst[dtype]["rel"],
+            tolerance=DOT_TOL, ms=kern["median"], runs_ms=kern["runs_ms"],
+            plain_ms=(t2 - t1) / (s2 - s1),
+            library_ms=_device_ms(lib, 100), shape=(16, 4480),
+            clocks=clocks)
+        print(f"probes: vit_dotshapes {dtype} dot K=16 LB=4480: kernel "
+              f"{kern['median'] * 1e3:.4f} us/step ({kern['min'] * 1e3:.4f}"
+              f"-{kern['max'] * 1e3:.4f}, 5 slopes {s1}->{s2} steps; "
+              f"clocks {clocks}), plain {timed[key]['plain_ms'] * 1e3:.2f}, "
+              f"library {timed[key]['library_ms'] * 1e3:.3f} us a step")
+    timed["dot_steps"]["sass_per_step"] = steps_sass
+    gate = DOT_GATES_US["dot_steps"]
+    _check(timed["dot_steps"]["ms"] * 1e3 <= gate,
+           f"D1 f32 dot K=16 LB=4480 {timed['dot_steps']['ms'] * 1e3:.4f} "
+           f"us a step > {gate} us")
+    # D1's other cases (not gated): one slope each
+    other = {}
+    for label, k, mode, lb in vd.F32_TIMED[1:]:
+        n1, n2 = vd.steps_long(lb)
+        other[f"{label} LB={lb}"] = per = _per_slope(
+            lambda n, k=k, mode=mode, lb=lb: vd.probe(
+                label, k, lb, n, mode, "float32", "kernel", 10), n1, n2,
+            runs=1)["median"]
+        print(f"probes: vit_dotshapes {label} LB={lb}: kernel "
+              f"{per * 1e3:.4f} us/step ({n1}->{n2} steps)")
+    timed["dot_steps"]["other_cases_ms"] = other
+    report["dot_steps"], report["dot_steps_bf16"] = (timed["dot_steps"],
+                                                     timed["dot_bf16"])
 
     # the batched product at the probe's N (32 steps x LB 4480) and at a
     # tail N (not a multiple of D4's 64-column tiles); timed at the
@@ -1304,7 +1353,7 @@ def _dot_checks(dev, report):
         for n in (32 * 4480, BATCHED_TAIL_N):
             s, x = (t.to(dev) for t in vd.batched_inputs(16, n, 1, dtype))
             hold(vd.dot_batched_cuda(s, x), vd.dot_batched_torch(s, x),
-                 f"batched {dtype} N={n}")
+                 f"batched {dtype} N={n}", worst)
             si, xi = ints((256, 16), 1, dtype), ints((16, n), 3, dtype)
             _check(torch.equal(vd.dot_batched_cuda(si, xi),
                                vd.dot_batched_torch(si, xi)),
@@ -1339,16 +1388,26 @@ def _dot_checks(dev, report):
                                vpu_probe2.dots_torch(x, w, n)),
                    f"dots {tag} n={n}: differs from plain")
         r = vpu_probe2.dot_rates(x, w)
-        dots[tag] = dict(ms=r["long_us"] / 1e3, short_ms=r["us"] / 1e3,
-                         plain_ms=r["plain_us"] / 1e3,
+        # the kernel's per dot: the median of 5 slopes from 40 to 1000
+        kern = _per_slope(lambda n: _device_ms(
+            lambda: vpu_probe2.dots_cuda(x, w, n), 10),
+            *vpu_probe2.DOT_NS_LONG)
+        dots[tag] = dict(ms=kern["median"], runs_ms=kern["runs_ms"],
+                         short_ms=r["us"] / 1e3, plain_ms=r["plain_us"] / 1e3,
                          library_ms=_device_ms(lambda: torch.matmul(
                              w, x[:kdim]), 100),
                          rows=rows, kdim=kdim, sass_per_dot=dots_sass[tag])
         print(f"probes: vpu_probe2 dot {tag}: n {vpu_probe2.DOT_NS} bit for "
-              f"bit; kernel {r['long_us']:.4f} us/dot (n 40->1000; n 8->40 "
-              f"{r['us']:.4f}; plain {r['plain_us']:.2f}, torch.matmul "
+              f"bit; kernel {kern['median'] * 1e3:.4f} us/dot "
+              f"({kern['min'] * 1e3:.4f}-{kern['max'] * 1e3:.4f}, 5 slopes "
+              f"n 40->1000; n 8->40 {r['us']:.4f}; plain "
+              f"{r['plain_us']:.2f}, torch.matmul "
               f"{dots[tag]['library_ms'] * 1e3:.2f} us a dot)")
-    report["dots"] = dict(err=0, per_shape=dots)
+    gate = DOT_GATES_US["dots_chain"]
+    bm = dots["bm [256,8]"]["ms"] * 1e3
+    _check(bm <= gate,
+           f"D5 [256,8] {bm:.4f} us a dot > {gate} us")
+    report["dots"] = dict(err=0, per_shape=dots, clocks=clocks)
 
 
 def phase_probes(dev, report):
@@ -1401,6 +1460,7 @@ def phase_probes(dev, report):
                 "vpu_probe": vpu_probe.LAUNCHES,
                 "vpu_probe2": vpu_probe2.LAUNCHES,
                 "dot_steps": vit_dotshapes.LAUNCHES,
+                "dot_steps_bf16": vit_dotshapes.BF16_LAUNCHES,
                 "dot_batched": vit_dotshapes.BATCHED_LAUNCHES,
                 "dot_batched_bf16": vit_dotshapes.BATCHED_BF16_LAUNCHES,
                 "dots_chain": vpu_probe2.DOT_LAUNCHES}
@@ -1826,6 +1886,7 @@ def _kernel_lines(report, launches):
     chain, pair = report["vpu_probe"], report["vpu_probe2"]
     steps, batched, chained = (report["dot_steps"], report["dot_batched"],
                                report["dots"])
+    steps16 = report["dot_steps_bf16"]
     n_chain = vpu_probe.SHAPE[0] * vpu_probe.SHAPE[1]
     n_pair = vpu_probe2.SHAPE[0] * vpu_probe2.SHAPE[1]
     n_batch = 32 * 4480
@@ -1912,8 +1973,17 @@ def _kernel_lines(report, launches):
              steps["library_ms"],
              _bound(16 * 4480 * 4, 256 * 16 * 4480 * 2, "fp32_flop"),
              unit="per step", rel_err=steps["rel_err"],
-             tolerance=steps["tolerance"],
+             tolerance=steps["tolerance"], runs_ms=steps["runs_ms"],
+             clocks=steps["clocks"], other_cases_ms=steps["other_cases_ms"],
              sass_per_step=steps["sass_per_step"]),
+        # the bf16 line of the same probe (D2, mma.sync): bf16 X read once
+        # a step; the library call is torch.mm of a step with f32 out
+        line("dot_steps_bf16", dots, "tools/vit_dotshapes.py:49",
+             pl["dot_steps_bf16"], steps16["err"], steps16["ms"],
+             steps16["plain_ms"], steps16["library_ms"],
+             _bound(16 * 4480 * 2, 256 * 16 * 4480 * 2, "bf16_flop"),
+             unit="per step", rel_err=steps16["rel_err"],
+             tolerance=steps16["tolerance"], runs_ms=steps16["runs_ms"]),
         line("dot_batched", dots, "tools/vit_dotshapes.py:92",
              pl["dot_batched"], f32["err"], f32["ms"], f32["plain_ms"],
              f32["library_ms"],
@@ -1935,7 +2005,8 @@ def _kernel_lines(report, launches):
         line("dots_chain", dots, "tools/vpu_probe2.py:78",
              pl["dots_chain"], chained["err"], bm["ms"], bm["plain_ms"],
              bm["library_ms"], _bound(0, 256 * 8 * 4480 * 2, "fp32_flop"),
-             unit="per dot", per_shape=chained["per_shape"]),
+             unit="per dot", runs_ms=bm["runs_ms"], clocks=chained["clocks"],
+             per_shape=chained["per_shape"]),
     ]
 
 

@@ -21,21 +21,36 @@
 // work is 1.2 us of the 44.
 //
 // Designs.
-//   D1 dot_steps_f32 (probe, f32): one block of 128 threads owns 16
-//     columns and all rows.  S is staged once in shared memory, transposed
-//     ([K][256], so a thread reads 4 of its rows in one LDS.128); each
-//     step's [K, 16] tile of X is prefetched into registers during the
-//     step before and stored to a second shared buffer (double buffer, one
-//     __syncthreads a step).  Thread (j, g) owns m-rows e*64 + 4j + q
-//     (e, q in 0..3) of columns 2g, 2g + 1: exactly the rows whose ACS
-//     reads state rows 16e + j and writes state rows 4j + q, so in
-//     dot_acs the only exchange is the [64, 16] state through shared
-//     memory.  The state of a column lives in one block: at LB 512 that is
-//     32 blocks on 132 SMs.  dot keeps all 256 rows live as a running sum
-//     (a compiler would drop rows no one reads); repeat_add and dot_acs
-//     keep the TPU's [64, LB] state.  Sums are FMA chains from the running
-//     value (the TPU adds a finished dot to it): exact on integers, within
-//     rounding on the TPU's normal inputs.
+//   D1 dot_steps_f32 (probe, f32): a warp owns all 256 rows of kC
+//     columns (kWideCols = 9, or 1 where LB is at most 4 warps an SM), a
+//     block is 4 warps, one a scheduler: at LB 4480, 498 warps on the 528
+//     schedulers of 132 SMs (the 16-column blocks before gave 280 blocks,
+//     3 warps on the busiest schedulers against 2.12 on average; at LB
+//     512, 512 warps of one column).  Lane (j, h) = (lane & 15, lane >> 4)
+//     owns rows e*64 + 4j + q, e in {h, h + 2}, q < 4: a tile of 8 rows x
+//     kC columns, kC running sums a row.  A depth k costs two LDS.128 of S
+//     (transposed in shared memory, [K][256], one block copy) and kC
+//     broadcast values of X (every lane reads the same address) for 8 kC
+//     FFMA: 72 at kC 9 against 32 FFMA for 5 loads before.  Each warp
+//     brings its [K, kC] tiles of X through its own ring (kXStages: 3
+//     steps at kC 1, 2 at 9) by 4-byte cp.async (rows padded to 16
+//     bytes, so a row reads as two LDS.128 and one LDS.32), so the step
+//     loop has no block barrier, only __syncwarp.  At kC 1 and K <= 16,
+//     S sits in registers (its 8 rows x K), so a depth costs one
+//     broadcast load for 8 FFMA.  dot_acs: the rows of one state row 4j
+//     + q are split over lanes (j, 0) (e = 0, 2: a = max) and (j, 1) (e =
+//     1, 3: b = max), one __shfl_xor a value joins them, and the warp's
+//     [kC][64] state in shared memory gives each m-row its start, state
+//     row 16e + j: the state of a column never leaves its warp.  dot
+//     keeps all 256 rows live as a running sum (a compiler would drop
+//     rows no one reads); repeat_add and dot_acs keep the TPU's [64, LB]
+//     state.  Sums are FMA chains from the running value (the TPU adds a
+//     finished dot to it): exact on integers, within rounding on the
+//     TPU's normal inputs.  vit_dotshapes.step_tiles() is the thread ->
+//     (rows, columns) map.  The depth loop is unrolled whole, so a K 80
+//     step at 9 columns is 5760 FFMA of code (about 92 KB): it runs 2.1x
+//     slower than the same loop unrolled 16 at a time (dot_variants'
+//     k_unroll_16), which the SASS count of one step would no longer see.
 //   D2 dot_steps_bf16 (probe, bf16, dot): four warps, each holding the A
 //     fragments of 4 row tiles of S in registers for the whole loop; per
 //     step each warp loads its B fragments of X (prefetched one step
@@ -58,21 +73,33 @@
 //     maps come from the driver's cuTensorMapEncodeTiled, looked up in the
 //     already loaded libcuda (no -lcuda at link).
 //   D5 dots_chain (make_dots): n_dots chained products
-//     acc = W @ X[(i % 8) * kdim :][:kdim] + acc * 1e-9, W and the block's
-//     [8 * kdim, 16] slice of X in shared memory.  Dots i and i + 8 are the
-//     same product, so an unrolled loop would invite the compiler to
-//     compute each distinct product once (ptxas folded the dependent
+//     acc = W @ X[(i % 8) * kdim :][:kdim] + acc * 1e-9.  A warp owns all
+//     rows of ncw columns, lane l rows 32 i + l, their W in registers (8 x
+//     8, 4 x 32 or 1 x 8 values).  ncw is the fewest columns (at most
+//     kDotCols = 9) that need no more than one warp a scheduler where a
+//     lane has 4 or 8 rows (9 at 4480 columns: 498 warps), 8 warps a
+//     scheduler at one row a lane ([32, 8]: 2 columns, 2240 warps; its dot
+//     is one chain of 8 FFMA a lane, which one warp cannot keep the pipe
+//     busy with).  The warp copies its columns of X transposed ([c][8
+//     kdim]) into shared memory once, then runs the columns' whole chains
+//     kG at a time (3 at 8 rows a lane: one load latency a dot for three
+//     columns' 192 FFMA; one at a time they ran 1.4x slower): each dot
+//     reads a column's kdim values by broadcast LDS.128.  Dots i and i + 8
+//     are the same product, so an unrolled loop would invite the compiler
+//     to compute each distinct product once (ptxas folded the dependent
 //     chains of chains.cu): the passes over X's 8 slices run in a loop
 //     that is not unrolled (n_dots is a run-time argument), and every dot
-//     loads its operands with volatile shared loads, which ptxas must
-//     issue and cannot prove equal (nor hoist out of the loop), so each
-//     dot keeps its loads and multiply-adds.  acc * 1e-9 and the add
-//     are rounded separately (__fmul_rn, __fadd_rn), as torch's two ops
-//     are.
+//     loads X with volatile shared loads, which ptxas must keep and
+//     cannot prove equal (nor hoist out of the loop), so each dot keeps
+//     its loads and multiply-adds.  acc * 1e-9 and the add are rounded
+//     separately (__fmul_rn, __fadd_rn), as torch's two ops are: each
+//     output costs kdim + 2 FP32 instructions a dot against the bound's
+//     kdim FMA.
 // vit_dotshapes.sass_counts() and vpu_probe2.dot_sass_counts() count the
 // FFMA / HMMA of one step and of one dot in the built library: the step
-// loop and the pass loop are not unrolled, so a kernel's count is one
-// step's, or one pass's of 8 dots; the HGMMA of D4 are those of one tile.
+// loop and the pass and column loops are not unrolled, so a kernel's count
+// is one step's (D1: of the kC = 9 kernel, 8 x 9 x K), or one pass's of 8
+// dots of one column; the HGMMA of D4 are those of one tile.
 
 #include <cstdint>
 #include <cuda.h>          // CUtensorMap and its enums (types only)
@@ -87,140 +114,242 @@ enum DotType { kF32 = 0, kBF16 = 1 };
 
 constexpr int kRows = 256;          // rows of S (4 branches x 64 states)
 constexpr int kStates = 64;
-constexpr int kStepThreads = 128;   // D1/D2: 16 row groups x 8 column pairs
-constexpr int kStepCols = 16;       // D1/D2: columns of a block
-constexpr int kPmStride = 17;       // padded row of the shared state
+constexpr int kStepCols = 16;       // D2: columns of a block; D1/D2/D5: LB
+                                    // and cols are multiples of it
+constexpr int kStepWarps = 4;       // D1/D5: warps of a block, one a scheduler
+constexpr int kStepThreads = 32 * kStepWarps;
+constexpr int kWideCols = 9;        // D1: columns of a warp above 4 warps an SM
 constexpr int kMaxStaticSmem = 48 * 1024;
+// D1: steps of X in a warp's ring: 3 at one column a warp, 2 at kWideCols
+// (there 2 ran faster than 3: tools/dot_variants.py)
+template <int kC>
+constexpr int kXStages = kC == 1 ? 3 : 2;
 
-// D1: STEPS steps of [256, K] @ [K, 16 columns] on the CUDA cores.
+// D1's shared memory, in floats: S transposed [K][256] (unless S sits in
+// registers: one column a warp, K <= 16), then each warp's ring of X
+// slots [kXRows][kXs] (rows padded to 16 bytes) and its state [kC][64]
+template <int kMode, int K, int kC>
+struct StepLayout {
+  static constexpr bool kSRegs = kMode != kRepeatAdd && kC == 1 && K <= 16;
+  static constexpr int kS = kMode != kRepeatAdd && !kSRegs ? K * kRows : 0;
+  static constexpr int kXRows = kMode == kRepeatAdd ? 1 : K;
+  static constexpr int kXs = (kC + 3) & ~3;
+  static constexpr int kStages = kXStages<kC>;
+  static constexpr int kSlot = kXRows * kXs;
+  static constexpr int kPm = kMode == kDot ? 0 : kC * kStates;
+  static constexpr int kWarp = kStages * kSlot + kPm;
+  static constexpr int kFloats = kS + kStepWarps * kWarp;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// a 4-byte cp.async, or 4 zero bytes when !valid (src must still be a
+// valid address)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+}
+
+// kC values of one row of an X slot (16-byte aligned), broadcast to the
+// warp: LDS.128 by four, then LDS.32
+template <int kC>
+__device__ __forceinline__ void load_x(const float* p, float (&v)[kC]) {
+#pragma unroll
+  for (int c = 0; c + 4 <= kC; c += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p + c);
+    v[c] = f.x;
+    v[c + 1] = f.y;
+    v[c + 2] = f.z;
+    v[c + 3] = f.w;
+  }
+#pragma unroll
+  for (int c = kC / 4 * 4; c < kC; ++c) v[c] = p[c];
+}
+
+// D1: STEPS steps of [256, K] @ [K, kC columns] a warp on the CUDA cores.
 // s [256][K], x [steps][xk][lb] (xk = K except for repeat_add, which reads
-// row 0 only), out dot: [256][lb], else [64][lb].
-template <int kMode, int K>
-__global__ void __launch_bounds__(kStepThreads)
+// row 0 only), out dot: [256][lb], else [64][lb].  Lane (j, h) = (lane &
+// 15, lane >> 4) owns rows e*64 + 4j + q, e in {h, h + 2}, q < 4, of the
+// warp's kC columns c0 + c (see the design note at the top).
+template <int kMode, int K, int kC>
+__global__ void __launch_bounds__(kStepThreads, 1)
 dot_steps_f32(const float* __restrict__ s, const float* __restrict__ x,
               float* __restrict__ out, int steps, int xk, int lb) {
-  constexpr int kSRows = kMode == kRepeatAdd ? 0 : K;
-  constexpr int kXRows = kMode == kRepeatAdd ? 1 : K;
-  constexpr int kTile = kXRows * kStepCols;
-  constexpr int kPf = (kTile + kStepThreads - 1) / kStepThreads;
-  constexpr int kPm = kStates * kPmStride;
+  using L = StepLayout<kMode, K, kC>;
+  constexpr bool kSRegs = L::kSRegs;
+  constexpr int kXRows = L::kXRows, kXs = L::kXs, kSlot = L::kSlot;
+  constexpr int kStages = L::kStages;
+  constexpr int kCopies = (kXRows * kC + 31) / 32;
   extern __shared__ float4 smem4[];
-  float* st = reinterpret_cast<float*>(smem4);  // [kSRows][256]
-  float* xs = st + kSRows * kRows;               // [2][kTile]
-  float* pms = xs + 2 * kTile;                   // [2][64][kPmStride]
-  const int tid = threadIdx.x;
-  const int j = tid & 15;
-  const int g = tid >> 4;
-  const int c0 = blockIdx.x * kStepCols;
-  const size_t step_stride = static_cast<size_t>(xk) * lb;
+  float* st = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ring = st + L::kS + warp * L::kWarp;
+  float* pm = ring + kStages * kSlot;            // the warp's state
+  const int j = lane & 15, h = lane >> 4;
+  const int c0 = (blockIdx.x * kStepWarps + warp) * kC;
 
-  for (int i = tid; i < kSRows * kRows; i += kStepThreads)
-    st[(i % K) * kRows + i / K] = s[i];
-  for (int i = tid; i < kTile; i += kStepThreads)
-    xs[i] = x[(i / kStepCols) * static_cast<size_t>(lb) + c0 + i % kStepCols];
-  if constexpr (kMode != kDot)
-    for (int i = tid; i < kPm; i += kStepThreads) pms[i] = 0.f;
-  float acc[4][4][2];
+  if constexpr (L::kS > 0) {
+    for (int i = threadIdx.x; i < kRows * K; i += kStepThreads)
+      st[(i % K) * kRows + i / K] = s[i];
+    __syncthreads();
+  }
+  if (c0 >= lb) return;
+  float4 sr[kSRegs ? K : 1][2];
+  if constexpr (kSRegs) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
+    for (int k = 0; k < K; ++k)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[e][q][0] = acc[e][q][1] = 0.f;
-  __syncthreads();
+      for (int ei = 0; ei < 2; ++ei) {
+        const float* r = s + ((h + 2 * ei) * 64 + 4 * j) * K + k;
+        sr[k][ei] = make_float4(r[0], r[K], r[2 * K], r[3 * K]);
+      }
+  }
+  // rows e*64 + 4j .. + 3 of S at depth k, e = h + 2 ei
+  auto srow = [&](int k, int ei) -> float4 {
+    if constexpr (kSRegs)
+      return sr[k][ei];
+    else
+      return *reinterpret_cast<const float4*>(st + k * kRows
+                                              + (h + 2 * ei) * 64 + 4 * j);
+  };
+
+  // step t's [kXRows, kC] tile of X into its slot: one copy group,
+  // empty past the last step; columns past lb are zeros
+  const size_t step_stride = static_cast<size_t>(xk) * lb;
+  const uint32_t ring_s = smem_u32(ring);
+  auto fetch = [&](int t) {
+    if (t < steps) {
+      const float* xt = x + t * step_stride + c0;
+      const uint32_t slot = ring_s + (t % kStages) * kSlot * 4;
+#pragma unroll
+      for (int p = 0; p < kCopies; ++p) {
+        const int i = lane + 32 * p;
+        const int k = i / kC, c = i % kC;
+        const bool valid = i < kXRows * kC && c0 + c < lb;
+        if (i < kXRows * kC)
+          cp_async4(slot + (k * kXs + c) * 4,
+                    valid ? xt + static_cast<size_t>(k) * lb + c : x, valid);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) fetch(t);
+  if constexpr (L::kPm > 0) {
+    for (int i = lane; i < L::kPm; i += 32) pm[i] = 0.f;
+  }
+  float acc[2][4][kC];
+#pragma unroll
+  for (int ei = 0; ei < 2; ++ei)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[ei][q][c] = 0.f;
 
 #pragma unroll 1
   for (int t = 0; t < steps; ++t) {
-    const int cur = t & 1;
-    const bool more = t + 1 < steps;
-    float pf[kPf];
-    if (more) {
-      const float* xt = x + (t + 1) * step_stride + c0;
-#pragma unroll
-      for (int p = 0; p < kPf; ++p) {
-        const int i = tid + p * kStepThreads;
-        if (i < kTile) pf[p] = xt[(i / kStepCols) * static_cast<size_t>(lb)
-                                  + i % kStepCols];
-      }
-    }
-    const float* xc = xs + cur * kTile;
-    const float* pc = pms + cur * kPm;
-    float* pn = pms + (cur ^ 1) * kPm;
+    fetch(t + kStages - 1);
+    cp_async_wait<kStages - 1>();               // step t has landed
+    __syncwarp();
+    const float* xs = ring + (t % kStages) * kSlot;
     if constexpr (kMode == kRepeatAdd) {
-      // m = repeat(pm, 4) + x[0]; pm = m[:64] + m[64:128]
+      // m = repeat(pm, 4) + x[0]; pm = m[:64] + m[64:128]: state rows
+      // 4j + q take (pm[j] + x) + (pm[16 + j] + x)
+      float v[kC];
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int c = 2 * g + n;
-        const float xv = xc[c];
-        const float v = (pc[j * kPmStride + c] + xv)
-                        + (pc[(16 + j) * kPmStride + c] + xv);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) pn[(4 * j + q) * kPmStride + c] = v;
+      for (int c = 0; c < kC; ++c) {
+        const float xv = xs[c];
+        v[c] = (pm[c * kStates + j] + xv) + (pm[c * kStates + 16 + j] + xv);
       }
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        if ((c & 1) == h)
+          *reinterpret_cast<float4*>(pm + c * kStates + 4 * j) =
+              make_float4(v[c], v[c], v[c], v[c]);
     } else {
       if constexpr (kMode == kDotAcs) {
         // m = repeat(pm, 4) + S @ x: m-row e*64 + 4j + q starts at state
         // row 16e + j
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int ei = 0; ei < 2; ++ei)
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const float p = pc[(16 * e + j) * kPmStride + 2 * g + n];
+          for (int c = 0; c < kC; ++c) {
+            const float p = pm[c * kStates + 16 * (h + 2 * ei) + j];
 #pragma unroll
-            for (int q = 0; q < 4; ++q) acc[e][q][n] = p;
+            for (int q = 0; q < 4; ++q) acc[ei][q][c] = p;
           }
       }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const float2 xv = *reinterpret_cast<const float2*>(
-            xc + k * kStepCols + 2 * g);
+        float xv[kC];
+        load_x<kC>(xs + k * kXs, xv);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4 sv = *reinterpret_cast<const float4*>(
-              st + k * kRows + e * 64 + 4 * j);
+        for (int ei = 0; ei < 2; ++ei) {
+          const float4 sv = srow(k, ei);
           const float sq[4] = {sv.x, sv.y, sv.z, sv.w};
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[e][q][0] = fmaf(sq[q], xv.x, acc[e][q][0]);
-            acc[e][q][1] = fmaf(sq[q], xv.y, acc[e][q][1]);
-          }
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int c = 0; c < kC; ++c)
+              acc[ei][q][c] = fmaf(sq[q], xv[c], acc[ei][q][c]);
         }
       }
       if constexpr (kMode == kDotAcs) {
-        // a = max(m[0:64], m[128:192]); b = max(m[64:128], m[192:256]);
-        // pm = where(b > a, b, a)
+        // a = max(m[0:64], m[128:192]) in lane h = 0, b = max(m[64:128],
+        // m[192:256]) in lane h = 1; pm = where(b > a, b, a)
+        float pn[4][kC];
 #pragma unroll
         for (int q = 0; q < 4; ++q)
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const float a = fmaxf(acc[0][q][n], acc[2][q][n]);
-            const float b = fmaxf(acc[1][q][n], acc[3][q][n]);
-            pn[(4 * j + q) * kPmStride + 2 * g + n] = b > a ? b : a;
+          for (int c = 0; c < kC; ++c) {
+            const float mine = fmaxf(acc[0][q][c], acc[1][q][c]);
+            const float other = __shfl_xor_sync(0xffffffffu, mine, 16);
+            const float a = h ? other : mine, b = h ? mine : other;
+            pn[q][c] = b > a ? b : a;
           }
-      }
-    }
-    if (more) {
-      float* xn = xs + (cur ^ 1) * kTile;
+        __syncwarp();
 #pragma unroll
-      for (int p = 0; p < kPf; ++p) {
-        const int i = tid + p * kStepThreads;
-        if (i < kTile) xn[i] = pf[p];
+        for (int c = 0; c < kC; ++c)
+          if ((c & 1) == h)
+            *reinterpret_cast<float4*>(pm + c * kStates + 4 * j) =
+                make_float4(pn[0][c], pn[1][c], pn[2][c], pn[3][c]);
       }
     }
-    __syncthreads();
+    __syncwarp();           // slot t % kStages read, pm written
   }
 
   if constexpr (kMode == kDot) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int ei = 0; ei < 2; ++ei)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        *reinterpret_cast<float2*>(
-            out + static_cast<size_t>(e * 64 + 4 * j + q) * lb + c0 + 2 * g) =
-            make_float2(acc[e][q][0], acc[e][q][1]);
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          if (c0 + c < lb)
+            out[static_cast<size_t>((h + 2 * ei) * 64 + 4 * j + q) * lb + c0
+                + c] = acc[ei][q][c];
   } else {
-    const float* fin = pms + (steps & 1) * kPm;
-    for (int i = tid; i < kStates * kStepCols; i += kStepThreads)
-      out[static_cast<size_t>(i / kStepCols) * lb + c0 + i % kStepCols] =
-          fin[(i / kStepCols) * kPmStride + i % kStepCols];
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      if (c0 + c < lb) {
+        out[static_cast<size_t>(lane) * lb + c0 + c] = pm[c * kStates + lane];
+        out[static_cast<size_t>(lane + 32) * lb + c0 + c] =
+            pm[c * kStates + lane + 32];
+      }
   }
 }
 
@@ -335,15 +464,6 @@ __device__ __forceinline__ float4 lds_volatile4(const float* p) {
   return v;
 }
 
-__device__ __forceinline__ float2 lds_volatile2(const float* p) {
-  float2 v;
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ld.volatile.shared.v2.f32 {%0, %1}, [%2];"
-               : "=f"(v.x), "=f"(v.y)
-               : "r"(a));
-  return v;
-}
-
 // D3: [256, K] @ [K, n] in f32, one thread per column.
 template <int K>
 __global__ void __launch_bounds__(kBatchThreads)
@@ -386,10 +506,6 @@ constexpr int kD4OutBufs = 2;                     // staged tiles
 constexpr int kD4Threads = 160;                   // 4 consumer warps + 1
 constexpr int kD4Smem = kD4OutBufs * kD4OutBytes + kD4Stages * kD4XBytes
                         + 2 * kD4Stages * 8 + 1024;  // + 1 KB to align
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
@@ -588,70 +704,83 @@ dot_batched_bf16(const __grid_constant__ CUtensorMap xmap,
 }
 
 // D5: ndots (a multiple of 8) chained products acc = W @ X[(i % 8)
-// kKdim :][: kKdim] + acc * 1e-9 over 16 columns a block; thread (rg, g)
-// owns rows i * 16 + rg (i < kRowsW / 16) of columns 2g, 2g + 1.  The 8
-// dots of one pass over X's slices are unrolled (their loads overlap the
-// previous dot's multiply-adds); the passes are not.
+// kKdim :][: kKdim] + acc * 1e-9 over ncw columns a warp; lane l owns
+// rows 32 i + l (i < kRowsW / 32), W's in registers, and walks the warp's
+// columns one chain at a time.  The 8 dots of one pass over X's slices
+// are unrolled; the passes and the columns are not.
+constexpr int kDotCols = 9;                   // most columns of a warp
+
 template <int kRowsW, int kKdim>
 __global__ void __launch_bounds__(kStepThreads)
 dots_chain(const float* __restrict__ x, const float* __restrict__ w,
-           float* __restrict__ out, int ndots, int cols) {
-  constexpr int kTm = kRowsW / 16;
-  constexpr int kWs = kKdim + 4;            // padded row: no bank conflicts
-  constexpr int kXRows = 8 * kKdim;
-  __shared__ float4 ws4[kRowsW * kWs / 4];
-  __shared__ float4 xs4[kXRows * kStepCols / 4];
-  float* ws = reinterpret_cast<float*>(ws4);
-  float* xs = reinterpret_cast<float*>(xs4);
-  const int tid = threadIdx.x;
-  const int rg = tid & 15;
-  const int g = tid >> 4;
-  const int c0 = blockIdx.x * kStepCols;
-  for (int i = tid; i < kRowsW * kKdim; i += kStepThreads)
-    ws[(i / kKdim) * kWs + i % kKdim] = w[i];
-  for (int i = tid; i < kXRows * kStepCols; i += kStepThreads)
-    xs[i] = x[static_cast<size_t>(i / kStepCols) * cols + c0 + i % kStepCols];
-  __syncthreads();
-  float acc[kTm][2];
-#pragma unroll
-  for (int i = 0; i < kTm; ++i) acc[i][0] = acc[i][1] = 0.f;
-#pragma unroll 1
-  for (int pass = 0; pass < ndots / 8; ++pass) {
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      const float* xd = xs + d * kKdim * kStepCols + 2 * g;
-      float v[kTm][2];
-#pragma unroll
-      for (int i = 0; i < kTm; ++i) v[i][0] = v[i][1] = 0.f;
-#pragma unroll
-      for (int k = 0; k < kKdim; k += 4) {
-        float2 xv[4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          xv[kk] = lds_volatile2(xd + (k + kk) * kStepCols);
-#pragma unroll
-        for (int i = 0; i < kTm; ++i) {
-          const float4 wv = lds_volatile4(ws + (i * 16 + rg) * kWs + k);
-          const float wk[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            v[i][0] = fmaf(wk[kk], xv[kk].x, v[i][0]);
-            v[i][1] = fmaf(wk[kk], xv[kk].y, v[i][1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kTm; ++i)
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-          acc[i][n] = __fadd_rn(v[i][n], __fmul_rn(acc[i][n], 1e-9f));
-    }
+           float* __restrict__ out, int ndots, int cols, int ncw) {
+  constexpr int kR = kRowsW / 32;
+  // columns whose chains run together (a load latency a dot for kG of
+  // them): 3 at 8 rows a lane, where one column's 64 FFMA a dot left the
+  // warp waiting on its loads
+  constexpr int kG = kR >= 8 ? 3 : 1;
+  constexpr int kXc = 8 * kKdim;              // X's values of a column
+  // a warp's columns of X, in whole groups (the last group's columns
+  // past ncw are read, never stored)
+  constexpr int kSpan = (kDotCols + kG - 1) / kG * kG;
+  __shared__ float4 xs4[kStepWarps * kSpan * kXc / 4];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* xs = reinterpret_cast<float*>(xs4) + warp * kSpan * kXc;
+  const int c0 = (blockIdx.x * kStepWarps + warp) * ncw;
+  if (c0 >= cols) return;
+  const int nc = min(ncw, cols - c0);
+  // the warp's columns of X, transposed: [c][8 * kdim]
+  for (int i = lane; i < kXc * nc; i += 32) {
+    const int r = i / nc, c = i % nc;
+    xs[c * kXc + r] = x[static_cast<size_t>(r) * cols + c0 + c];
   }
+  float wr[kR][kKdim];
 #pragma unroll
-  for (int i = 0; i < kTm; ++i)
-    *reinterpret_cast<float2*>(out + static_cast<size_t>(i * 16 + rg) * cols +
-                               c0 + 2 * g) = make_float2(acc[i][0],
-                                                         acc[i][1]);
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int k = 0; k < kKdim; ++k) wr[i][k] = w[(i * 32 + lane) * kKdim + k];
+  __syncwarp();
+#pragma unroll 1
+  for (int c = 0; c < nc; c += kG) {
+    float acc[kG][kR];
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+#pragma unroll
+      for (int i = 0; i < kR; ++i) acc[g][i] = 0.f;
+#pragma unroll 1
+    for (int pass = 0; pass < ndots / 8; ++pass) {
+#pragma unroll
+      for (int d = 0; d < 8; ++d) {
+        float xv[kG][kKdim];
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+#pragma unroll
+          for (int k = 0; k < kKdim; k += 4) {
+            const float4 v = lds_volatile4(xs + (c + g) * kXc + d * kKdim + k);
+            xv[g][k] = v.x;
+            xv[g][k + 1] = v.y;
+            xv[g][k + 2] = v.z;
+            xv[g][k + 3] = v.w;
+          }
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+#pragma unroll
+          for (int i = 0; i < kR; ++i) {
+            float v = 0.f;
+#pragma unroll
+            for (int k = 0; k < kKdim; ++k) v = fmaf(wr[i][k], xv[g][k], v);
+            acc[g][i] = __fadd_rn(v, __fmul_rn(acc[g][i], 1e-9f));
+          }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+      if (c + g < nc)
+#pragma unroll
+        for (int i = 0; i < kR; ++i)
+          out[static_cast<size_t>(i * 32 + lane) * cols + c0 + c + g] =
+              acc[g][i];
+  }
 }
 
 template <typename Kernel>
@@ -663,20 +792,41 @@ int launch_smem(Kernel kernel, size_t smem) {
   return 0;
 }
 
-template <int kMode, int K>
+// the current device's SM count
+int sm_count(int* sms) {
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc == 0)
+    rc = static_cast<int>(cudaDeviceGetAttribute(
+        sms, cudaDevAttrMultiProcessorCount, dev));
+  return rc;
+}
+
+template <int kMode, int K, int kC>
 int launch_steps(const float* s, const float* x, float* out, int steps,
                  int xk, int lb, cudaStream_t st) {
-  constexpr int kSRows = kMode == kRepeatAdd ? 0 : K;
-  constexpr int kXRows = kMode == kRepeatAdd ? 1 : K;
-  const size_t smem = sizeof(float) * (kSRows * kRows
-                                       + 2 * kXRows * kStepCols
-                                       + 2 * kStates * kPmStride);
-  auto kernel = dot_steps_f32<kMode, K>;
+  const size_t smem = sizeof(float) * StepLayout<kMode, K, kC>::kFloats;
+  auto kernel = dot_steps_f32<kMode, K, kC>;
   const int rc = launch_smem(kernel, smem);
   if (rc) return rc;
-  kernel<<<lb / kStepCols, kStepThreads, smem, st>>>(s, x, out, steps, xk,
-                                                     lb);
+  const int warps = (lb + kC - 1) / kC;
+  kernel<<<(warps + kStepWarps - 1) / kStepWarps, kStepThreads, smem, st>>>(
+      s, x, out, steps, xk, lb);
   return 0;
+}
+
+// one column a warp while that fills at most one warp a scheduler (LB up
+// to 4 x SMs), else kWideCols
+template <int kMode, int K>
+int launch_steps_c(const float* s, const float* x, float* out, int steps,
+                   int xk, int lb, cudaStream_t st) {
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc) return rc;
+  return lb <= kStepWarps * sms
+             ? launch_steps<kMode, K, 1>(s, x, out, steps, xk, lb, st)
+             : launch_steps<kMode, K, kWideCols>(s, x, out, steps, xk, lb,
+                                                 st);
 }
 
 template <int kMode>
@@ -684,21 +834,34 @@ int launch_steps_k(int k, const float* s, const float* x, float* out,
                    int steps, int lb, cudaStream_t st) {
   switch (k) {
     case 8:
-      return launch_steps<kMode, 8>(s, x, out, steps, k, lb, st);
+      return launch_steps_c<kMode, 8>(s, x, out, steps, k, lb, st);
     case 16:
-      return launch_steps<kMode, 16>(s, x, out, steps, k, lb, st);
+      return launch_steps_c<kMode, 16>(s, x, out, steps, k, lb, st);
     case 80:
-      return launch_steps<kMode, 80>(s, x, out, steps, k, lb, st);
+      return launch_steps_c<kMode, 80>(s, x, out, steps, k, lb, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// ncw columns a warp: the fewest (at most kDotCols) that need no more
+// warps than `chains` a scheduler: one where a lane's 4 or 8 rows feed
+// the FFMA pipe, 8 at one row a lane ([32, 8]: a dot is one chain of 8
+// FFMA a lane)
 template <int kRowsW, int kKdim>
 int launch_dots(int ndots, const float* x, const float* w, float* out,
                 int cols, cudaStream_t st) {
-  dots_chain<kRowsW, kKdim><<<cols / kStepCols, kStepThreads, 0, st>>>(
-      x, w, out, ndots, cols);
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc) return rc;
+  const int chains = kRowsW >= 128 ? 1 : kRows / kRowsW;
+  const int warps_max = kStepWarps * sms * chains;
+  const int per = (cols + warps_max - 1) / warps_max;
+  const int ncw = per < 1 ? 1 : per > kDotCols ? kDotCols : per;
+  const int warps = (cols + ncw - 1) / ncw;
+  dots_chain<kRowsW, kKdim><<<(warps + kStepWarps - 1) / kStepWarps,
+                              kStepThreads, 0, st>>>(x, w, out, ndots, cols,
+                                                     ncw);
   return 0;
 }
 
@@ -758,11 +921,8 @@ int launch_batched_bf16(const void* s, const void* x, float* out,
   if (rc == 0)
     rc = tensor_map_2d(&omap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, n,
                        kRows, 32, kRows);
-  int dev = 0, sms = 0;
-  if (rc == 0) rc = static_cast<int>(cudaGetDevice(&dev));
-  if (rc == 0)
-    rc = static_cast<int>(cudaDeviceGetAttribute(
-        &sms, cudaDevAttrMultiProcessorCount, dev));
+  int sms = 0;
+  if (rc == 0) rc = sm_count(&sms);
   if (rc == 0)
     rc = static_cast<int>(cudaFuncSetAttribute(
         dot_batched_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -808,7 +968,8 @@ int dabjax_probe_dot_steps(const void* s, const void* x, void* out, int mode,
       rc = launch_steps_k<kDot>(k, sf, xf, o, steps, lb, st);
       break;
     case kRepeatAdd:
-      rc = launch_steps<kRepeatAdd, 1>(sf, xf, o, steps, k, lb, st);
+      rc = launch_steps_c<kRepeatAdd, 1>(sf, xf, o, steps, k, lb,
+                                         st);
       break;
     case kDotAcs:
       rc = launch_steps_k<kDotAcs>(k, sf, xf, o, steps, lb, st);

@@ -26,7 +26,8 @@ cores with f32 accumulation, through ``mma.sync`` in the step loop and
 versions.  Inputs are the TPU probe's: ``default_rng(0)``, S then X,
 standard normal (float32, then the dtype).  :func:`sass_counts` counts
 the FFMA / HMMA instructions of each step, and the HGMMA of one tile of
-the batched bf16 product, in the built library.
+the batched bf16 product, in the built library.  :func:`step_tiles` is
+the f32 step kernel's map of threads to the rows and columns they own.
 
 ``main()`` prints, for LB 4480 and 512, the TPU probe's cases: us per
 step from the slope between two step counts (8 and 32 at LB 4480, 32 and
@@ -52,8 +53,10 @@ from dabjax_torch import _build, tools
 from dabjax_torch.fec import viterbi_cuda
 from dabjax_torch.tools import vpu_probe
 
-__all__ = ["MODES", "DTYPES", "KS", "CASES", "LBS", "BATCHED_CASES", "ROWS",
-           "steps_for", "steps_long", "probe_inputs", "batched_inputs",
+__all__ = ["MODES", "DTYPES", "KS", "CASES", "LBS", "F32_TIMED",
+           "BATCHED_CASES", "ROWS", "STEP_WARPS", "WIDE_COLS", "steps_for",
+           "steps_long", "probe_inputs", "batched_inputs", "step_cols",
+           "step_tiles",
            "dot_steps_cuda", "dot_steps_torch", "dot_batched_cuda",
            "dot_batched_torch", "probe", "probe_batched", "probe2",
            "sass_counts", "reset_launches", "main"]
@@ -75,11 +78,24 @@ CASES = (("loop dot f32", 16, "dot", "float32"),
          ("loop dot+acs f32", 16, "dot_acs", "float32"))
 #: the TPU probe's lane counts
 LBS = (4480, 512)
+#: the f32 step kernel's timed cases (``chip_smoke.py`` phase 10 and
+#: ``tools.dot_variants``): name, K, mode, LB; the first is the gated one
+F32_TIMED = (("dot K=16", 16, "dot", 4480), ("dot K=8", 8, "dot", 4480),
+             ("dot K=80", 80, "dot", 4480),
+             ("repeat_add", 16, "repeat_add", 4480),
+             ("dot_acs K=16", 16, "dot_acs", 4480),
+             ("dot K=16", 16, "dot", 512))
 #: the batched product's cases (main(): K 16, LB 4480, 32 steps)
 BATCHED_CASES = (("batched dot f32", "float32"),
                  ("batched dot bf16", "bfloat16"))
-#: launches of the step-loop kernel since the last reset
+#: the f32 step kernel's warps a block (one a scheduler) and its columns
+#: a warp above 4 warps an SM (``csrc/dots.cu``: kStepWarps, kWideCols)
+STEP_WARPS = 4
+WIDE_COLS = 9
+#: launches of the step-loop kernels since the last reset: f32 (D1) and
+#: bf16 (D2)
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 #: launches of the batched-product kernels since the last reset: f32
 #: (D3) and bf16 (D4)
 BATCHED_LAUNCHES = 0
@@ -87,8 +103,9 @@ BATCHED_BF16_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES, BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
     LAUNCHES = 0
+    BF16_LAUNCHES = 0
     BATCHED_LAUNCHES = 0
     BATCHED_BF16_LAUNCHES = 0
 
@@ -128,6 +145,39 @@ def batched_inputs(k: int, lb: int, steps: int, dtype: str = "float32",
     return s.to(DTYPES[dtype]), x.to(DTYPES[dtype])
 
 
+def step_cols(lb: int, sms: int = 132) -> int:
+    """Columns a warp of the f32 step kernel owns: one while LB columns
+    fill at most one warp a scheduler (LB up to 4 x ``sms``), else
+    :data:`WIDE_COLS`."""
+    return 1 if lb <= STEP_WARPS * sms else WIDE_COLS
+
+
+def step_tiles(lb: int, mode: str = "dot", sms: int = 132):
+    """The f32 step kernel's map, thread by thread: yields (block, warp,
+    lane, rows, columns) of the output each thread stores, as
+    ``csrc/dots.cu`` computes them.  Warp w of block b owns columns
+    (4b + w) kC + c, c < kC (those below LB); in ``dot`` lane (j, h) =
+    (lane & 15, lane >> 4) holds the running sums of rows e*64 + 4j + q,
+    e in {h, h + 2}, q < 4 (the four rows e*64 + 4j + q of one state row
+    4j + q sit in lanes (j, 0) and (j, 1)); the state [64, LB] of
+    ``repeat_add`` and ``dot_acs`` is stored from the warp's shared copy,
+    rows lane and lane + 32."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+    kc = step_cols(lb, sms)
+    warps = -(-lb // kc)
+    for gw in range(warps):
+        cols = [gw * kc + c for c in range(kc) if gw * kc + c < lb]
+        for lane in range(32):
+            j, h = lane & 15, lane >> 4
+            if mode == "dot":
+                rows = [(h + 2 * ei) * 64 + 4 * j + q for ei in range(2)
+                        for q in range(4)]
+            else:
+                rows = [lane, lane + 32]
+            yield gw // STEP_WARPS, gw % STEP_WARPS, lane, rows, cols
+
+
 def _dtype(s: torch.Tensor, x: torch.Tensor, name: str) -> str:
     for key, dt in DTYPES.items():
         if s.dtype == dt and x.dtype == dt:
@@ -150,7 +200,7 @@ def dot_steps_cuda(s: torch.Tensor, x: torch.Tensor,
                    mode: str = "dot") -> torch.Tensor:
     """The kernel: X.shape[0] steps of ``mode`` (see the module) from a
     zero state -> float32 [256, LB] (dot) or [64, LB]."""
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
     dtype = _dtype(s, x, "dot_steps_cuda")
     shape = _steps_out(s, x, mode)
     steps, k, lb = x.shape
@@ -170,7 +220,10 @@ def dot_steps_cuda(s: torch.Tensor, x: torch.Tensor,
         rc = lib.dabjax_probe_dot_steps(
             s.data_ptr(), x.data_ptr(), out.data_ptr(), MODES.index(mode),
             list(DTYPES).index(dtype), k, steps, lb, stream)
-        LAUNCHES += 1
+        if dtype == "float32":
+            LAUNCHES += 1
+        else:
+            BF16_LAUNCHES += 1
     viterbi_cuda._check(rc, "dot_steps_cuda")
     return out
 
@@ -311,16 +364,16 @@ def probe2(name: str, k: int, lb: int, mode: str = "dot",
 
 def sass_counts() -> dict:
     """{case: instructions of one step} in the built library: FFMA and
-    FMUL of the f32 step kernel per mode and K (FADD for repeat_add), HMMA
-    of the bf16 one; and "batched bf16 K=16": the HGMMA (wgmma) of the
-    batched bf16 product, one a 64-row slab of a tile.  The step and tile
-    loops are not unrolled, so a kernel's count is one step's or one
-    tile's (0 would mean the work was folded away, or that the batched
-    product does not run on wgmma)."""
-    f32 = vpu_probe._sass_lengths(r"dot_steps_f32ILi(\d+)ELi(\d+)E",
-                                  ops=("FFMA", "FMUL"))
-    adds = vpu_probe._sass_lengths(r"dot_steps_f32ILi(\d+)ELi(\d+)E",
-                                   ops=("FADD",))
+    FMUL of the f32 step kernel per mode and K (FADD for repeat_add), in
+    its :data:`WIDE_COLS` build (a thread's step: 8 rows x 9 columns x K
+    FFMA), HMMA of the bf16 one; and "batched bf16 K=16": the HGMMA
+    (wgmma) of the batched bf16 product, one a 64-row slab of a tile.  The
+    step and tile loops are not unrolled, so a kernel's count is one
+    step's or one tile's (0 would mean the work was folded away, or that
+    the batched product does not run on wgmma)."""
+    wide = rf"dot_steps_f32ILi(\d+)ELi(\d+)ELi{WIDE_COLS}E"
+    f32 = vpu_probe._sass_lengths(wide, ops=("FFMA", "FMUL"))
+    adds = vpu_probe._sass_lengths(wide, ops=("FADD",))
     hmma = vpu_probe._sass_lengths(r"dot_steps_bf16E", ops=("HMMA",))
     out = {f"{mode} f32 K={k}": f32.get((MODES.index(mode), k), 0)
            for mode in ("dot", "dot_acs") for k in KS}

@@ -14,7 +14,8 @@ kdim :][:kdim] + acc * 1e-9 (dots i and i + 8 are the same product) for
 the TPU probe's shapes :data:`DOT_SHAPES` over 4480 columns, X integers
 in [-127, 127] and W in {-1, 0, 1}, as float32.  :func:`dots_cuda` runs
 the kernel (``csrc/dots.cu``, FFMA on the CUDA cores, n a multiple of 8;
-every dot reloads its operands, so none is folded into another);
+W stays in registers and every dot reloads its X, so none is folded into
+another);
 :func:`dots_torch` is its plain version.  The products are exact, and
 the two roundings of each step are those of torch's two ops, so the two
 agree bit for bit.  :func:`dot_sass_counts` counts the FFMA
@@ -46,9 +47,9 @@ from dabjax_torch.tools import vpu_probe
 
 __all__ = ["DTYPES", "PAIR_NS", "SHAPE", "pair_tiles", "pair_chain_cuda",
            "pair_chain_torch", "sass_op_counts", "rates", "DOT_SHAPES",
-           "DOT_NS", "DOT_NS_LONG", "DOT_COLS", "dot_inputs", "dots_cuda",
-           "dots_torch", "dot_sass_counts", "dot_rates", "reset_launches",
-           "main"]
+           "DOT_NS", "DOT_NS_LONG", "DOT_COLS", "DOT_GROUP", "dot_inputs",
+           "dots_cuda", "dots_torch", "dot_sass_counts", "dot_rates",
+           "reset_launches", "main"]
 
 #: the dtypes, in the TPU probe's order
 DTYPES = ("float32", "int32", "int16", "bfloat16")
@@ -67,6 +68,9 @@ DOT_NS = (8, 40)
 DOT_NS_LONG = (40, 1000)
 #: columns of X and of the result
 DOT_COLS = 4480
+#: columns whose chains a lane of the chained-dot kernel runs together,
+#: by rows of W (``csrc/dots.cu`` kG: 3 at 8 rows a lane)
+DOT_GROUP = {256: 3, 128: 1, 32: 1}
 #: launches of the chained-dot kernel since the last reset
 DOT_LAUNCHES = 0
 
@@ -148,14 +152,15 @@ def rates(x: torch.Tensor, y: torch.Tensor) -> dict:
                 plain_us=vpu_probe.per_op(plain, 16, 96, 3))
 
 
-def dot_inputs(seed: int = 0) -> list:
-    """[(tag, x [8 * kdim, 4480], w [rows, kdim])] float32 for each of
+def dot_inputs(seed: int = 0, cols: int = DOT_COLS) -> list:
+    """[(tag, x [8 * kdim, cols], w [rows, kdim])] float32 for each of
     :data:`DOT_SHAPES`: x integers in [-127, 127], w in {-1, 0, 1}, drawn
-    in turn from one ``default_rng(seed)`` (the TPU probe's inputs)."""
+    in turn from one ``default_rng(seed)`` (the TPU probe's inputs at the
+    default ``seed`` and ``cols``)."""
     rng = np.random.default_rng(seed)
     out = []
     for rows_w, kdim, tag in DOT_SHAPES:
-        x = rng.integers(-127, 128, size=(8 * kdim, DOT_COLS))
+        x = rng.integers(-127, 128, size=(8 * kdim, cols))
         w = rng.integers(-1, 2, size=(rows_w, kdim))
         out.append((tag, torch.from_numpy(x.astype(np.float32)),
                     torch.from_numpy(w.astype(np.float32))))
@@ -206,9 +211,12 @@ def dots_torch(x: torch.Tensor, w: torch.Tensor, n_dots: int) -> torch.Tensor:
 
 def dot_sass_counts() -> dict:
     """{tag: FFMA and FMUL instructions of one dot per thread} of the
-    chained-dot kernel.  The loop over passes of 8 dots is not unrolled (n
-    is a run-time argument), so the kernel's count over 8 is one dot's (0
-    would mean the compiler folded the products)."""
+    chained-dot kernel.  The loops over a warp's columns and over passes
+    of 8 dots are not unrolled (n is a run-time argument), so the
+    kernel's count over 8 is one dot's of the columns a lane runs
+    together (:data:`DOT_GROUP`): rows / 32 x columns x (kdim FFMA + the
+    FMUL of acc * 1e-9) (0 would mean the compiler folded the
+    products)."""
     lengths = vpu_probe._sass_lengths(r"dots_chainILi(\d+)ELi(\d+)E",
                                       ops=("FFMA", "FMUL"))
     return {tag: lengths.get((rows, kdim), 0) / 8

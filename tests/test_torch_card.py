@@ -194,25 +194,49 @@ def test_batched_bf16_kernel_on_card(n):
     assert vd.sass_counts()["batched bf16 K=16"] >= 4
 
 
+def _ints(shape, bound, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-bound, bound + 1, size=shape).astype(np.float32)
+    return torch.from_numpy(v).to(dtype)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 1, 33])
+@pytest.mark.parametrize("lb", [16, 512, 4480, 4496])
+@pytest.mark.parametrize("k", vd.KS)
 @pytest.mark.parametrize("mode", vd.MODES)
-def test_step_kernel_matches_plain_on_card(mode):
+def test_step_kernel_matches_plain_on_card(mode, k, lb, steps):
+    """D1 within 1e-5 of max |plain| on the TPU probe's normal inputs
+    (repeat_add bit for bit) and exact on integer inputs, at both of its
+    column widths (one column a warp up to LB 528, 9 above), a width
+    that no 9-column warp tiles (4496) and from 0 steps."""
     dev = _card()
-    s, x = (t.to(dev) for t in vd.probe_inputs(16, 512, 32))
+    s, x = (t.to(dev) for t in vd.probe_inputs(k, lb, steps, seed=lb + k))
     want = vd.dot_steps_torch(s, x, mode)
     got = vd.dot_steps_cuda(s, x, mode)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    if mode == "repeat_add" or steps == 0:
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+    si = _ints((256, k), 1, seed=k).to(dev)
+    xi = _ints((steps, k, lb), 3, seed=lb + steps).to(dev)
+    assert torch.equal(vd.dot_steps_cuda(si, xi, mode),
+                       vd.dot_steps_torch(si, xi, mode))
 
 
 @pytest.mark.cuda
-def test_dots_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("n", [0, 8, 1000])
+@pytest.mark.parametrize("cols", [16, 4480, 4496])
+def test_dots_kernel_matches_plain_on_card(cols, n):
+    """D5 bit for bit at its three shapes, at one column a warp (16
+    columns), 9 (4480) and a last warp of fewer (4496), from 0 dots."""
     dev = _card()
-    for _, x, w in vpu_probe2.dot_inputs():
+    for _, x, w in vpu_probe2.dot_inputs(seed=cols, cols=cols):
         x, w = x.to(dev), w.to(dev)
-        for n in vpu_probe2.DOT_NS:
-            assert torch.equal(vpu_probe2.dots_cuda(x, w, n),
-                               vpu_probe2.dots_torch(x, w, n))
+        assert torch.equal(vpu_probe2.dots_cuda(x, w, n),
+                           vpu_probe2.dots_torch(x, w, n))
 
 
 #: (B, nbits) of the redesigned forward probes' checks: one codeword, a

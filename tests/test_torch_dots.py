@@ -30,6 +30,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from dabjax_torch import _build
+from dabjax_torch.tools import dot_variants
 from dabjax_torch.tools import vit_dotshapes as vd
 from dabjax_torch.tools import vpu_probe2
 
@@ -199,10 +200,12 @@ def test_plain_probe_rejects_bad_input():
 
 
 _SASS = """
-\t\tFunction : _ZN12_GLOBAL__N_113dot_steps_f32ILi0ELi16EEEvPKfS2_Pfiii
+\t\tFunction : _ZN12_GLOBAL__N_113dot_steps_f32ILi0ELi16ELi9EEEvPKfS2_Pfiii
         /*0000*/                   FFMA R0, R1, R2, R0 ;                    /* 0x0000000000007223 */
         /*0010*/                   FMUL R3, R1, R2 ;                        /* 0x0000000000007220 */
         /*0020*/                   FADD R3, R1, R2 ;                        /* 0x0000000000007221 */
+\t\tFunction : _ZN12_GLOBAL__N_113dot_steps_f32ILi0ELi16ELi1EEEvPKfS2_Pfiii
+        /*0000*/                   FFMA R0, R1, R2, R0 ;                    /* 0x0000000000007223 */
 \t\tFunction : _ZN12_GLOBAL__N_114dot_steps_bf16EPKtS1_Pfii
         /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;    /* 0x0000000000007223 */
 \t\tFunction : _ZN12_GLOBAL__N_116dot_batched_bf16E14CUtensorMap_stS0_PKtix
@@ -218,7 +221,8 @@ _SASS = """
 
 def test_sass_counts_read_cuobjdump(monkeypatch):
     """The per-step and per-dot counts read the kernels' template
-    arguments and count only the named instructions."""
+    arguments and count only the named instructions (the f32 step
+    kernel's: its 9-column build only)."""
     monkeypatch.setattr(_build, "sass", lambda: _SASS)
     counts = vd.sass_counts()
     assert counts["dot f32 K=16"] == 2 and counts["dot bf16 K=16"] == 1
@@ -234,5 +238,55 @@ def test_probe_mains_without_a_card_fail(argv, capsys):
     assert vpu_probe2.main(argv) == 1
     if not argv:
         assert vd.main() == 1
+        assert dot_variants.main() == 1
     err = capsys.readouterr()
     assert "no CUDA card" in err.err and not err.out
+
+
+@pytest.mark.parametrize("mode", vd.MODES)
+@pytest.mark.parametrize("lb", [16, 512, 528, 544, 4480, 4496])
+def test_step_tiles_store_every_output_once(lb, mode):
+    """D1's thread map (``step_tiles``, as ``csrc/dots.cu`` computes it):
+    every output element is stored by exactly one thread at one column a
+    warp (LB up to 4 x 132) and at 9, the last warp partial at 4480 and
+    4496; each block is 4 warps; in ``dot`` the 16 rows e*64 + 4j + q of
+    one (j) sit in lanes (j, 0) and (j, 1), e = h and h + 2, as the ACS of
+    ``dot_acs`` needs them."""
+    out = np.zeros((vd.ROWS if mode == "dot" else 64, lb), dtype=np.int64)
+    kc = vd.step_cols(lb)
+    assert kc == (1 if lb <= 4 * 132 else vd.WIDE_COLS)
+    for block, warp, lane, rows, cols in vd.step_tiles(lb, mode):
+        assert 0 <= warp < vd.STEP_WARPS
+        assert cols == [c for c in range((4 * block + warp) * kc,
+                                         (4 * block + warp + 1) * kc)
+                        if c < lb]
+        out[np.ix_(rows, cols)] += 1
+        if mode == "dot":
+            j, h = lane & 15, lane >> 4
+            assert sorted(rows) == sorted(e * 64 + 4 * j + q for e in
+                                          (h, h + 2) for q in range(4))
+    assert (out == 1).all()
+
+
+def test_dot_variants_apply_to_the_kernel_source(monkeypatch):
+    """``tools.dot_variants`` edits ``csrc/dots.cu`` by text: every edit of
+    every variant is found exactly once in the source as it stands when
+    it is applied; the earlier designs come in beside the kernels and
+    the entry points call them; without a card its ``main()`` says so
+    and fails."""
+    src = (_build.CSRC / "dots.cu").read_text()
+    for name, edits in dot_variants.VARIANTS.items():
+        text = src
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old[:60])
+            text = text.replace(old, new)
+        assert dot_variants.variant_source(src, edits) == text != src
+    earlier = dot_variants.variant_source(src,
+                                          dot_variants.VARIANTS["earlier"])
+    assert "launch_steps_c<kRepeatAdd" not in earlier
+    assert earlier.count("launch_dots_earlier<") == len(
+        vpu_probe2.DOT_SHAPES)
+    with pytest.raises(ValueError, match="not once"):
+        dot_variants.variant_source(src, [("no such text", "")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert dot_variants.main() == 1
