@@ -85,19 +85,25 @@ non-zero exit at the first failure:
     dot-shape kernels (the step loop in every case of
     ``vit_dotshapes``' main() at both lane counts, the batched product in
     f32 and bf16, the chained dots of ``vpu_probe2`` at its three shapes)
-    against their plain versions, within ``DOT_TOL`` on the TPU probes'
-    standard-normal inputs and bit for bit on integer inputs, with the
-    FFMA / HMMA of one step and one dot (each at least the products its
-    thread tile must compute); each timed beside its plain version and, for
-    the dot shapes, one ``torch.matmul`` of the same shape (the step loop
-    in f32 and bf16, per step, the bf16 one beside ``torch.mm`` with f32
-    out; the batched product also at a tail width, N 4488, and beside
-    ``torch.mm`` with f32 out, its bf16 kernel's HGMMA counted in the
-    SASS), the run failing if the f32 step loop (K 16, LB 4480) or the
+    against their plain versions, within ``vit_dotshapes.DOT_TOL`` on
+    the TPU probes' standard-normal inputs and bit for bit on integer
+    inputs, with the FFMA of one f32 step and one dot and the HGMMA of one
+    bf16 ring stage (each at least the products its thread tile or
+    warpgroup must compute); each timed beside its plain version and a
+    library call: the step loop (f32 and bf16, per step) beside one GEMM
+    of the whole loop, ``[S ... S] @ X.view(16 steps, LB)``
+    (``torch.matmul`` in f32, ``torch.mm`` with f32 out in bf16; per step
+    by the same slope) and one such call of a single step, the bf16 one
+    also past the L2 (512 -> 2048 steps); the batched product also at a
+    tail width, N 4488, and beside ``torch.mm`` with f32 out, its bf16
+    kernel's HGMMA counted in the SASS; the chained dots beside one
+    ``torch.matmul`` of a dot; the
+    run failing if the step loop (f32 or bf16, K 16, LB 4480) or the
     [256, 8] chained dots take more than ``DOT_GATES_US`` per step or
     per dot (medians of 5 slopes, beside the SM clock); the copy kernel
-    against ``torch.mul`` over 7 interleaved runs; then each probe's ``main()`` in
-    process, one printed line per case;
+    against ``torch.mul`` and the plane kernel against one ``fill_`` of
+    the plane over 7 interleaved runs each; then each probe's ``main()``
+    in process, one printed line per case;
 11. mesh: the multi-device path (``dabjax_torch.parallel``) on a (2, 4)
     mesh whose 8 positions are all the one card: the sharded step on
     phase 4's rows (48 frames and 192 CIFs a time row, 3 subchannels a
@@ -1008,10 +1014,11 @@ def _probe_checks(dev, report):
               f"GB/s (plain {plain_ms:.4f} ms), bit for bit")
     # the library's own call for the same product (torch's elementwise
     # multiply), as the copy's yardstick: COPY_REPS runs in turns
-    xb = hbm_probe.input_block().to(dev)
+    xc = hbm_probe.input_block().to(dev)
     spread = _interleaved_ms(
-        {"kernel": lambda: hbm_probe.scale_copy_cuda(xb),
-         "mul": lambda: torch.mul(xb, 1.000001)}, COPY_REPS)
+        {"kernel": lambda: hbm_probe.scale_copy_cuda(xc),
+         "mul": lambda: torch.mul(xc, 1.000001)}, COPY_REPS)
+    del xc
     nbytes = report["hbm_copy"]["nbytes"]
     report["hbm_copy"].update(ms=spread["kernel"]["median"],
                               gb_per_s=nbytes / spread["kernel"]["median"]
@@ -1019,6 +1026,35 @@ def _probe_checks(dev, report):
                               library_ms=spread["mul"]["median"],
                               spread_ms=spread)
     print(f"probes: scale_copy vs torch.mul over {COPY_REPS} runs in turns, "
+          f"ms median (min-max): {_spread_text(spread)}")
+    # the plane's library call: one fill_ of the int8 plane with the
+    # saturated cast of x[0, 0, 0], made on the device beforehand (a
+    # broadcast copy of the device scalar) and, as fill_int, read to the
+    # host once beforehand; on an input whose 8-step blocks all start with
+    # that value it is the kernel's output. COPY_REPS runs in turns with
+    # the kernel on the seed-8 input checked above
+    xe = hbm_probe.input_block(seed=8).to(dev)
+    xe[::hbm_probe.PLANE_BLOCK, 0, 0] = xe[0, 0, 0]
+    v = xe[0, 0, 0].clamp(-128, 127).to(torch.int8)
+    iv = int(v)
+    plane = torch.empty((xe.shape[0], hbm_probe.PLANE_ROWS, xe.shape[2]),
+                        dtype=torch.int8, device=dev)
+    want = hbm_probe.decision_plane_cuda(xe)
+    for fill in (v, iv):
+        _check(torch.equal(plane.fill_(fill), want),
+               "fill_ of x[0, 0, 0] is not the plane kernel's output")
+    del want
+    spread = _interleaved_ms(
+        {"kernel": lambda: hbm_probe.decision_plane_cuda(xb),
+         "fill": lambda: plane.fill_(v),
+         "fill_int": lambda: plane.fill_(iv)}, COPY_REPS)
+    nbytes = report["hbm_plane"]["nbytes"]
+    report["hbm_plane"].update(
+        ms=spread["kernel"]["median"],
+        gb_per_s=nbytes / spread["kernel"]["median"] / 1e6,
+        library_ms=min(spread["fill"]["median"],
+                       spread["fill_int"]["median"]), spread_ms=spread)
+    print(f"probes: decision_plane vs fill_ over {COPY_REPS} runs in turns, "
           f"ms median (min-max): {_spread_text(spread)}")
 
 
@@ -1206,17 +1242,14 @@ def _short_call(kernel, plain, what: str) -> dict:
     return out
 
 
-#: the dot probes' tolerance on the TPU probes' standard-normal inputs:
-#: float32 sums of the same products in another order (FMA chains on the
-#: card, blocked products in torch), |kernel - plain| over max |plain|
-DOT_TOL = 1e-5
 #: a batched-product width that ends in a partial 64-column tile
 BATCHED_TAIL_N = 4488
 #: gates of the redesigned dot probes, us (medians of 5 slopes): D1 (f32
-#: dot, K 16, LB 4480, per step between 32 and 256 steps; 0.9316) and D5
-#: ([256, 8] @ [8, 4480], per dot between 40 and 1000 dots; 0.4093), each
-#: at 1.3x its median on an H100 at 700 W, 1980 MHz (PERF.md section 6)
-DOT_GATES_US = {"dot_steps": 1.21, "dots_chain": 0.53}
+#: dot, K 16, LB 4480, per step between 32 and 256 steps; 0.9316), D2 (the
+#: same in bf16; 0.0609) and D5 ([256, 8] @ [8, 4480], per dot between 40
+#: and 1000 dots; 0.4093), each at 1.3x its median on an H100 at 700 W,
+#: 1980 MHz (PERF.md section 6)
+DOT_GATES_US = {"dot_steps": 1.21, "dot_steps_bf16": 0.079, "dots_chain": 0.53}
 
 
 def _per_slope(ms_of, n1: int, n2: int, runs: int = 5) -> dict:
@@ -1233,20 +1266,22 @@ def _dot_checks(dev, report):
     main(), at both lane counts, the larger step count), the batched
     product and the chained dots against their plain versions, within
     DOT_TOL on the TPU probes' inputs and bit for bit on integer inputs
-    (the chained dots' own inputs are integers); the FFMA / HMMA of one
-    step and one dot in the SASS; times per step and per dot beside the
-    plain version and one torch.matmul of the same shape."""
+    (the chained dots' own inputs are integers); the FFMA / HGMMA of one
+    step, stage and dot in the SASS; times per step and per dot beside the
+    plain version and the library calls; the step loops gated."""
     import numpy as np
     import torch
     from dabjax_torch.tools import vit_dotshapes as vd, vpu_probe2
 
     steps_sass, dots_sass = vd.sass_counts(), vpu_probe2.dot_sass_counts()
     # D1's wide build: a thread's step is 8 rows x WIDE_COLS columns x K
-    # FFMA (3 FADD a column in repeat_add); D2 8 mma.sync a warp's step;
-    # the batched bf16 product one wgmma (HGMMA) a 64-row slab, 4 a tile
+    # FFMA (3 FADD a column in repeat_add); D2 one wgmma (HGMMA) a 64-row
+    # slab a step, in one ring stage of each of its two paths (40 and 32
+    # columns); the batched bf16 product one wgmma a 64-row slab, 4 a tile
     want = {f"{m} f32 K={k}": 8 * vd.WIDE_COLS * k for m in ("dot", "dot_acs")
             for k in vd.KS}
-    want.update({"repeat_add f32": 3 * vd.WIDE_COLS, "dot bf16 K=16": 8,
+    want.update({"repeat_add f32": 3 * vd.WIDE_COLS,
+                 "dot bf16 K=16": 2 * vd.BF16_STAGE_STEPS * 4,
                  "batched bf16 K=16": 4})
     _check(all(steps_sass[c] >= n for c, n in want.items()),
            f"a step kernel lost work: {steps_sass}, want at least {want}")
@@ -1269,11 +1304,11 @@ def _dot_checks(dev, report):
         return d, d / float(want.abs().max())
 
     def hold(got, want, what, worst):
-        """Within DOT_TOL of plain; the largest error so far in worst."""
+        """Within vd.DOT_TOL of plain; the largest error so far in worst."""
         if not torch.equal(got.nan_to_num(), want.nan_to_num()):
             a, r = err(got, want)
-            _check(r <= DOT_TOL, f"{what}: {r:.2e} of max |plain| > "
-                   f"{DOT_TOL}")
+            _check(r <= vd.DOT_TOL, f"{what}: {r:.2e} of max |plain| > "
+                   f"{vd.DOT_TOL}")
             worst["abs"], worst["rel"] = (max(worst["abs"], a),
                                          max(worst["rel"], r))
 
@@ -1294,13 +1329,15 @@ def _dot_checks(dev, report):
                                vd.dot_steps_torch(si, xi, mode)),
                    f"{name} LB={lb}: not exact on integer inputs")
         print(f"probes: vit_dotshapes LB={lb} steps={steps}: every case "
-              f"within {DOT_TOL} of plain, exact on integer inputs")
+              f"within {vd.DOT_TOL} of plain, exact on integer inputs")
 
     # per step at LB 4480, K 16 (the TPU probe's first line, and its bf16
     # line), from the slope between 32 and 256 steps (the device's time),
-    # the kernel's the median of 5 slopes; one library call of a step:
-    # torch.matmul (f32), torch.mm with f32 out (bf16, the kernel's
-    # function)
+    # the kernel's the median of 5 slopes; the library's: one call of the
+    # loop's function, [S ... S] @ X.view(16 steps, LB) (the repeat made
+    # once a length, outside the timing; torch.matmul in f32, torch.mm
+    # with f32 out in bf16), per step by the same slope (median of 3), and
+    # one such call of a single step
     clocks = _clocks()
     s1, s2 = vd.steps_long(4480)
     timed = {}
@@ -1309,25 +1346,54 @@ def _dot_checks(dev, report):
             "loop dot", 16, 4480, n, "dot", dtype, "kernel", 10), s1, s2)
         t1, t2 = (vd.probe("loop dot", 16, 4480, n, "dot", dtype, "plain",
                            3) for n in (s1, s2))
-        s, x = (t.to(dev) for t in vd.probe_inputs(16, 4480, s1, dtype))
-        lib = ((lambda: torch.matmul(s, x[0])) if dtype == "float32" else
-               (lambda: torch.mm(s, x[0], out_dtype=torch.float32)))
+        s, x = (t.to(dev) for t in vd.probe_inputs(16, 4480, s2, dtype))
+        rep = {n: s.repeat(1, n) for n in (1, s1, s2)}
+
+        def gemm(n, dtype=dtype, s=s, x=x, rep=rep):
+            a, b = rep[n], x[:n].reshape(16 * n, 4480)
+            if dtype == "float32":
+                return lambda: torch.matmul(a, b)
+            return lambda: torch.mm(a, b, out_dtype=torch.float32)
+        hold(gemm(s2)(), vd.dot_steps_torch(s, x), f"the {dtype} GEMM of "
+             f"{s2} steps", dict(abs=0.0, rel=0.0))
+        lib = _per_slope(lambda n: _device_ms(gemm(n), 10), s1, s2, runs=3)
         timed[key] = dict(
             err=worst[dtype]["abs"], rel_err=worst[dtype]["rel"],
-            tolerance=DOT_TOL, ms=kern["median"], runs_ms=kern["runs_ms"],
-            plain_ms=(t2 - t1) / (s2 - s1),
-            library_ms=_device_ms(lib, 100), shape=(16, 4480),
+            tolerance=vd.DOT_TOL, ms=kern["median"], runs_ms=kern["runs_ms"],
+            plain_ms=(t2 - t1) / (s2 - s1), library_ms=lib["median"],
+            library_runs_ms=lib["runs_ms"],
+            library_step_ms=_device_ms(gemm(1), 100), shape=(16, 4480),
             clocks=clocks)
         print(f"probes: vit_dotshapes {dtype} dot K=16 LB=4480: kernel "
               f"{kern['median'] * 1e3:.4f} us/step ({kern['min'] * 1e3:.4f}"
               f"-{kern['max'] * 1e3:.4f}, 5 slopes {s1}->{s2} steps; "
               f"clocks {clocks}), plain {timed[key]['plain_ms'] * 1e3:.2f}, "
-              f"library {timed[key]['library_ms'] * 1e3:.3f} us a step")
+              f"library: one GEMM of the loop {lib['median'] * 1e3:.4f} us "
+              f"a step ({lib['min'] * 1e3:.4f}-{lib['max'] * 1e3:.4f}, 3 "
+              f"slopes), one step's call "
+              f"{timed[key]['library_step_ms'] * 1e3:.3f} us")
     timed["dot_steps"]["sass_per_step"] = steps_sass
-    gate = DOT_GATES_US["dot_steps"]
-    _check(timed["dot_steps"]["ms"] * 1e3 <= gate,
-           f"D1 f32 dot K=16 LB=4480 {timed['dot_steps']['ms'] * 1e3:.4f} "
-           f"us a step > {gate} us")
+    timed["dot_bf16"]["sass_per_stage"] = steps_sass["dot bf16 K=16"]
+    # D2 past the L2: X of 73 to 294 MB, read from device memory each call
+    l1, l2 = vd.STEPS_PAST_L2
+    gen = torch.Generator(device=dev).manual_seed(12)
+    sl = torch.randn((256, 16), generator=gen, device=dev).to(torch.bfloat16)
+    xl = torch.randn((l2, 16, 4480), generator=gen, device=dev).to(
+        torch.bfloat16)
+    far = _per_slope(lambda n: _device_ms(
+        lambda: vd.dot_steps_cuda(sl, xl[:n]), 5), l1, l2, runs=3)
+    del xl
+    timed["dot_bf16"].update(beyond_l2_ms=far["median"],
+                             beyond_l2_runs_ms=far["runs_ms"])
+    print(f"probes: vit_dotshapes bfloat16 dot K=16 LB=4480 past the L2: "
+          f"kernel {far['median'] * 1e3:.4f} us/step ({far['min'] * 1e3:.4f}"
+          f"-{far['max'] * 1e3:.4f}, 3 slopes {l1}->{l2} steps)")
+    for key, name, probe in (("dot_steps", "dot_steps", "D1 f32"),
+                             ("dot_bf16", "dot_steps_bf16", "D2 bf16")):
+        gate = DOT_GATES_US[name]
+        _check(timed[key]["ms"] * 1e3 <= gate,
+               f"{probe} dot K=16 LB=4480 {timed[key]['ms'] * 1e3:.4f} us a "
+               f"step > {gate} us")
     # D1's other cases (not gated): one slope each
     other = {}
     for label, k, mode, lb in vd.F32_TIMED[1:]:
@@ -1372,10 +1438,11 @@ def _dot_checks(dev, report):
             library_ms=med.get("library", med["matmul"]), spread_ms=spread,
             x_bytes=x.numel() * x.element_size())
         print(f"probes: vit_dotshapes batched {dtype}: N 143360 and "
-              f"{BATCHED_TAIL_N} within {DOT_TOL} (worst {worst['rel']:.2e})"
-              f", exact on integers; ms median (min-max) of 5 runs: "
+              f"{BATCHED_TAIL_N} within {vd.DOT_TOL} (worst "
+              f"{worst['rel']:.2e}), exact on integers; ms median (min-max) "
+              f"of 5 runs: "
               f"{_spread_text(spread)}")
-    report["dot_batched"] = dict(tolerance=DOT_TOL,
+    report["dot_batched"] = dict(tolerance=vd.DOT_TOL,
                                  sass_hgmma=steps_sass["batched bf16 K=16"],
                                  **batched)
 
@@ -1932,12 +1999,15 @@ def _kernel_lines(report, launches):
              _bound(copy["nbytes"], copy["elements"], "lane_op"),
              gb_per_s=copy["gb_per_s"],
              plain_gb_per_s=copy["plain_gb_per_s"]),
+        # the library call: one fill_ of the plane (its output where the
+        # input's 8-step blocks start with one value)
         line("decision_plane", probes, "tools/hbm_probe.py:69",
              pl["hbm_plane"], dplane["err"], dplane["ms"],
-             dplane["plain_ms"], None,
+             dplane["plain_ms"], dplane["library_ms"],
              _bound(dplane["nbytes"], 0, "lane_op"),
              gb_per_s=dplane["gb_per_s"],
-             plain_gb_per_s=dplane["plain_gb_per_s"]),
+             plain_gb_per_s=dplane["plain_gb_per_s"],
+             spread_ms=dplane["spread_ms"]),
         # the plane forward: full mode, ksplit, C = 8
         line("forward_plane", probes, "tools/vit_variants.py:38",
              pl["vit_variants"], plane["err"], plane["modes"]["full"]["ms"],
@@ -1966,24 +2036,32 @@ def _kernel_lines(report, launches):
              per_op_us=pair["per_op"]),
         # the dot shapes: times per step (f32 dot, K 16, LB 4480) and per
         # dot ([256, 8] @ [8, 4480]), from the slope between two lengths;
-        # the library call is one torch.matmul of a step's or a dot's
-        # shape
+        # the step loops' library call is one GEMM of the whole loop, per
+        # step by the same slope (one step's call under library_step_ms),
+        # the chained dots' one torch.matmul of a dot's shape
         line("dot_steps", dots, "tools/vit_dotshapes.py:49",
              pl["dot_steps"], steps["err"], steps["ms"], steps["plain_ms"],
              steps["library_ms"],
              _bound(16 * 4480 * 4, 256 * 16 * 4480 * 2, "fp32_flop"),
              unit="per step", rel_err=steps["rel_err"],
              tolerance=steps["tolerance"], runs_ms=steps["runs_ms"],
+             library_step_ms=steps["library_step_ms"],
              clocks=steps["clocks"], other_cases_ms=steps["other_cases_ms"],
              sass_per_step=steps["sass_per_step"]),
-        # the bf16 line of the same probe (D2, mma.sync): bf16 X read once
-        # a step; the library call is torch.mm of a step with f32 out
+        # the bf16 line of the same probe (D2, wgmma fed by a TMA ring):
+        # bf16 X read once a step; beyond_l2_ms is the slope with X past
+        # the L2 (512 -> 2048 steps)
         line("dot_steps_bf16", dots, "tools/vit_dotshapes.py:49",
              pl["dot_steps_bf16"], steps16["err"], steps16["ms"],
              steps16["plain_ms"], steps16["library_ms"],
              _bound(16 * 4480 * 2, 256 * 16 * 4480 * 2, "bf16_flop"),
              unit="per step", rel_err=steps16["rel_err"],
-             tolerance=steps16["tolerance"], runs_ms=steps16["runs_ms"]),
+             tolerance=steps16["tolerance"], runs_ms=steps16["runs_ms"],
+             beyond_l2_ms=steps16["beyond_l2_ms"],
+             beyond_l2_runs_ms=steps16["beyond_l2_runs_ms"],
+             library_step_ms=steps16["library_step_ms"],
+             clocks=steps16["clocks"],
+             sass_hgmma_per_stage=steps16["sass_per_stage"]),
         line("dot_batched", dots, "tools/vit_dotshapes.py:92",
              pl["dot_batched"], f32["err"], f32["ms"], f32["plain_ms"],
              f32["library_ms"],

@@ -11,10 +11,11 @@
 // (TF32 would round the inputs), so f32 runs as FFMA on the CUDA cores:
 // a [256, 16] @ [16, 4480] step is 18.4 M FMAs, 0.55 us at the 67 TFLOP/s
 // of the FP32 lanes, against 0.09 us to read its 287 KB of X, so the loop
-// is bound by operations.  bf16 runs on the tensor cores through
-// mma.sync.m16n8k16 with f32 accumulation (one k-step at K = 16): 0.04 us
-// of tensor-core work a step, so what the bf16 line measures is the issue
-// and latency of a chain of small products, as on the TPU.  The batched
+// is bound by operations.  bf16 runs on the tensor cores (wgmma) with f32
+// accumulation: a step is 0.037 us of tensor-core work against 0.043 us
+// to read its 143 KB of X, so the bf16 loop is bound by bytes, and only
+// if X arrives many steps ahead of the products (one global load round
+// trip, about 1200 SM clocks, is 0.6 us a step).  The batched
 // product writes a [256, STEPS * LB] f32 result (147 MB at K 16, LB 4480,
 // 32 steps): it is bound by that store (44 us at 3.35 TB/s), not by its
 // 1.2 GFLOP.  So D4 (bf16) is built around the store: its tensor-core
@@ -51,10 +52,31 @@
 //     step at 9 columns is 5760 FFMA of code (about 92 KB): it runs 2.1x
 //     slower than the same loop unrolled 16 at a time (dot_variants'
 //     k_unroll_16), which the SASS count of one step would no longer see.
-//   D2 dot_steps_bf16 (probe, bf16, dot): four warps, each holding the A
-//     fragments of 4 row tiles of S in registers for the whole loop; per
-//     step each warp loads its B fragments of X (prefetched one step
-//     ahead) and issues 8 mma.sync, accumulating in f32 fragments.
+//   D2 dot_steps_bf16 (probe, bf16, dot): the step loop as a GEMM K-loop,
+//     sum_t S @ X_t = [S ... S] @ X.view(16 steps, LB), whose f32
+//     accumulators stay in registers from the first step to the last (no
+//     split-K; one store at the end).  X_t does not depend on the sum, so
+//     it streams ahead of the tensor cores: a producer warp brings stages
+//     of kD2Steps steps by TMA, one [128 rows, 64 columns] box a stage
+//     from the block's first column (128-byte swizzle, D4's layout), into
+//     a ring of kD2Stages stages with full / empty mbarriers: 32 steps, 64
+//     KB, ahead of the products.  The consumer warpgroup holds S as wgmma
+//     A fragments in registers and issues, each step, one wgmma.m64n40k16
+//     a 64-row slab (m64n32k16 for a strip of at most 4 units) into the
+//     same accumulators; a stage's products are one commit group, waited
+//     on one stage later (wait_group 1), so successive steps pipeline as a
+//     GEMM main loop's do, and its buffer then goes back to the producer.
+//     Two costs set its time, not the bytes in flight (a deeper ring was
+//     no faster): the wgmma a step (a separate m64n8k16 for a fifth unit
+//     ran slower) and the TMA's requests, one a box row (unswizzled [rows,
+//     8] boxes, one a unit, ran slower; PERF.md section 6).  Columns go
+//     in 8-column units, 4 or 5 a block
+//     (vit_dotshapes.bf16_step_strips): at LB 4480, 132 blocks of 32 or
+//     40 columns, one an SM, where 140 strips of 32 would give 8 SMs two;
+//     at LB 512, 16 blocks of 32.  Rows past the last step and
+//     columns past LB arrive as zeros from the TMA (they add nothing); a
+//     block stores its own units only.  X must be 16-byte aligned (the
+//     tensor map); out takes plain stores.
 //   D3 dot_batched_f32: one thread per output column, X's column in
 //     registers, S broadcast from shared memory, rows stored in order (a
 //     warp writes 128 contiguous bytes per row).
@@ -96,10 +118,12 @@
 //     output costs kdim + 2 FP32 instructions a dot against the bound's
 //     kdim FMA.
 // vit_dotshapes.sass_counts() and vpu_probe2.dot_sass_counts() count the
-// FFMA / HMMA of one step and of one dot in the built library: the step
-// loop and the pass and column loops are not unrolled, so a kernel's count
-// is one step's (D1: of the kC = 9 kernel, 8 x 9 x K), or one pass's of 8
-// dots of one column; the HGMMA of D4 are those of one tile.
+// FFMA / HGMMA of one step, stage or tile and the FFMA of one dot in the
+// built library: the step, stage, tile, pass and column loops are not
+// unrolled, so a kernel's count is one step's (D1: of the kC = 9 kernel, 8
+// x 9 x K), one stage's of each of D2's two paths (n40 and n32: 2 x 4
+// slabs x kD2Steps), one tile's (D4: 4) or one pass's of 8 dots of one
+// column.
 
 #include <cstdint>
 #include <cuda.h>          // CUtensorMap and its enums (types only)
@@ -114,8 +138,8 @@ enum DotType { kF32 = 0, kBF16 = 1 };
 
 constexpr int kRows = 256;          // rows of S (4 branches x 64 states)
 constexpr int kStates = 64;
-constexpr int kStepCols = 16;       // D2: columns of a block; D1/D2/D5: LB
-                                    // and cols are multiples of it
+constexpr int kStepCols = 16;       // D1/D2/D5: LB and cols are multiples
+                                    // of it
 constexpr int kStepWarps = 4;       // D1/D5: warps of a block, one a scheduler
 constexpr int kStepThreads = 32 * kStepWarps;
 constexpr int kWideCols = 9;        // D1: columns of a warp above 4 warps an SM
@@ -353,21 +377,6 @@ dot_steps_f32(const float* __restrict__ s, const float* __restrict__ x,
   }
 }
 
-// bf16 pairs for the mma fragments: the lower k in the low half
-__device__ __forceinline__ uint32_t pack2(unsigned short lo,
-                                          unsigned short hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The A fragment of rows 16 rt .. 16 rt + 15 of S [256][16] (row-major):
 // rows lane / 4 and + 8, k pairs (lane % 4) * 2 and + 8.
 __device__ __forceinline__ void load_a(uint32_t (&a)[4],
@@ -378,77 +387,6 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4],
   a[1] = *reinterpret_cast<const uint32_t*>(s + (r + 8) * 16 + k);
   a[2] = *reinterpret_cast<const uint32_t*>(s + r * 16 + k + 8);
   a[3] = *reinterpret_cast<const uint32_t*>(s + (r + 8) * 16 + k + 8);
-}
-
-// The B fragment of column col of X [16][ld] (k-major): k pairs
-// (lane % 4) * 2 and + 8.
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const unsigned short* x, size_t ld,
-                                       size_t col, int lane) {
-  const int k = (lane % 4) * 2;
-  b0 = pack2(x[k * ld + col], x[(k + 1) * ld + col]);
-  b1 = pack2(x[(k + 8) * ld + col], x[(k + 9) * ld + col]);
-}
-
-// D2: STEPS steps of [256, 16] @ [16, 16 columns] in bf16 on the tensor
-// cores, f32 running sum [256][lb].
-__global__ void __launch_bounds__(kStepThreads)
-dot_steps_bf16(const unsigned short* __restrict__ s,
-               const unsigned short* __restrict__ x, float* __restrict__ out,
-               int steps, int lb) {
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const size_t c0 = static_cast<size_t>(blockIdx.x) * kStepCols;
-  const size_t step_stride = static_cast<size_t>(16) * lb;
-  uint32_t a[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) load_a(a[i], s, 4 * w + i, lane);
-  float d[4][2][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int ct = 0; ct < 2; ++ct)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) d[i][ct][v] = 0.f;
-  uint32_t b[2][2];
-#pragma unroll
-  for (int ct = 0; ct < 2; ++ct)
-    if (steps > 0) load_b(b[ct][0], b[ct][1], x, lb, c0 + 8 * ct + lane / 4,
-                          lane);
-#pragma unroll 1
-  for (int t = 0; t < steps; ++t) {
-    uint32_t nb[2][2];
-    if (t + 1 < steps) {
-      const unsigned short* xt = x + (t + 1) * step_stride;
-#pragma unroll
-      for (int ct = 0; ct < 2; ++ct)
-        load_b(nb[ct][0], nb[ct][1], xt, lb, c0 + 8 * ct + lane / 4, lane);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int ct = 0; ct < 2; ++ct) mma_bf16(d[i][ct], a[i], b[ct][0],
-                                              b[ct][1]);
-    if (t + 1 < steps) {
-#pragma unroll
-      for (int ct = 0; ct < 2; ++ct) {
-        b[ct][0] = nb[ct][0];
-        b[ct][1] = nb[ct][1];
-      }
-    }
-  }
-  // the C fragment: rows lane / 4 and + 8, columns (lane % 4) * 2, + 1
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int ct = 0; ct < 2; ++ct) {
-      const size_t r = 16 * (4 * w + i) + lane / 4;
-      const size_t c = c0 + 8 * ct + (lane % 4) * 2;
-      *reinterpret_cast<float2*>(out + r * lb + c) =
-          make_float2(d[i][ct][0], d[i][ct][1]);
-      *reinterpret_cast<float2*>(out + (r + 8) * lb + c) =
-          make_float2(d[i][ct][2], d[i][ct][3]);
-    }
 }
 
 constexpr int kBatchThreads = 256;
@@ -560,11 +498,12 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       : "memory");
 }
 
-// The wgmma descriptor of an X tile: B is MN-major ([16 k][64 n] bf16, a
-// k row 128 bytes), 128-byte swizzle.  A swizzle atom is 8 k rows (1024
-// bytes); the stride byte offset steps to the next 8 k rows.  The
-// leading byte offset steps to the next 64 columns, which an N = 64
-// product never reads: it is set to the same 1024.
+// The wgmma descriptor of an X tile, B MN-major ([16 k][n] bf16, a k row
+// of n columns contiguous): a k row of 128 bytes (64 columns), 128-byte
+// swizzle (layout 1), whose atom is 8 k rows (1024 bytes).  The stride
+// byte offset steps to the next 8 k rows; the leading one to the next 64
+// columns, which a product of N <= 64 never reads, so it is set to the
+// same 1024.  D4 (N 64) and D2 (N 32 or 40) read this layout.
 __device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3ffff) >> 4)
          | static_cast<uint64_t>(1024 >> 4) << 16
@@ -598,9 +537,10 @@ __device__ __forceinline__ void wgmma_slab(float (&d)[32],
 
 // the accumulators are written by the asynchronous product: their uses
 // must follow the wait
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 __global__ void __launch_bounds__(kD4Threads, 1)
@@ -701,6 +641,156 @@ dot_batched_bf16(const __grid_constant__ CUtensorMap xmap,
   }
   if (threadIdx.x == 0)
     asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// D2: STEPS steps of [256, 16] @ [16, LB] in bf16 on the tensor cores
+// (wgmma), the f32 running sum [256][lb] in registers throughout; see the
+// design note at the top.  Block b owns the 8-column units b * units /
+// blocks .. (b + 1) * units / blocks - 1 (rounded down), at most kD2Units.
+constexpr int kD2Steps = 8;                       // steps of X a stage
+constexpr int kD2Stages = 4;                      // stages in the ring
+constexpr int kD2Units = 5;                       // most units of a block
+constexpr int kD2Rows = 16 * kD2Steps;            // X rows of a stage
+constexpr int kD2Stage = kD2Rows * 128;           // a [128, 64] bf16 box
+constexpr int kD2Threads = 128 + 32;              // + the producer warp
+constexpr int kD2Smem = kD2Stages * kD2Stage + 2 * kD2Stages * 8 + 1024;
+
+// d += A @ B for one 64-row slab over N = 32 or 40 columns (m64nNk16): A
+// (rows of S) from registers, B from the X ring (MN-major: imm-trans-b 1),
+// d read (scale-d 1)
+template <int N>
+__device__ __forceinline__ void wgmma_acc(float (&d)[N / 2],
+                                          const uint32_t (&a)[4],
+                                          uint64_t bdesc) {
+  static_assert(N == 32 || N == 40, "D2 issues m64n32k16 or m64n40k16");
+  if constexpr (N == 32)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(1));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19}, "
+        "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(bdesc), "r"(1));
+}
+
+// D2's consumer warpgroup over every stage: the 4 64-row slabs x N
+// columns of the block's strip (N = 40 with a fifth unit, else 32; the
+// columns past its w_units units hold another block's data or none, and
+// are not stored).  A stage's buffer goes back to the producer once the
+// products of the next stage are issued and its own are done (wait_group
+// 1).  Warp w holds rows 16w .. 16w + 15 of each slab.
+template <int N>
+__device__ __forceinline__ void d2_consume(const unsigned short* s,
+                                           uint32_t ring, uint32_t full,
+                                           uint32_t empty, int stages,
+                                           float* __restrict__ out, int lb,
+                                           int c0, int w_units) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t a[4][4];
+  float d[4][N / 2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    load_a(a[i], s, 4 * i + warp, lane);
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) d[i][j] = 0.f;
+  }
+#pragma unroll 1
+  for (int i = 0; i < stages; ++i) {
+    const int st = i % kD2Stages;
+    const uint32_t buf = ring + st * kD2Stage;
+    mbar_wait(full + 8 * st, (i / kD2Stages) & 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) fence_acc(d[j]);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int t = 0; t < kD2Steps; ++t) {
+      const uint64_t b = x_desc(buf + t * 2048);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_acc<N>(d[j], a[j], b);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    if (i > 0) mbar_arrive(empty + 8 * ((i - 1) % kD2Stages));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < 4; ++j) fence_acc(d[j]);
+  // C fragment: d[4u + e] at row 16 warp + lane / 4 (+ 8 for e >= 2),
+  // column 8u + 2q (+ 1 for odd e) of the strip
+  const size_t r8 = static_cast<size_t>(8) * lb;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const size_t row = 64 * j + 16 * warp + (lane >> 2);
+    float* o = out + row * lb + c0 + 2 * (lane & 3);
+#pragma unroll
+    for (int u = 0; u < N / 8; ++u)
+      if (u < w_units) {
+        *reinterpret_cast<float2*>(o + 8 * u) =
+            make_float2(d[j][4 * u], d[j][4 * u + 1]);
+        *reinterpret_cast<float2*>(o + r8 + 8 * u) =
+            make_float2(d[j][4 * u + 2], d[j][4 * u + 3]);
+      }
+  }
+}
+
+__global__ void __launch_bounds__(kD2Threads, 1)
+dot_steps_bf16(const __grid_constant__ CUtensorMap xmap,
+               const unsigned short* __restrict__ s, float* __restrict__ out,
+               int stages, int units, int lb) {
+  extern __shared__ __align__(1024) unsigned char d2_smem[];
+  // 1024-byte alignment for the swizzle atoms: [ring][full][empty]
+  const uint32_t ring = (smem_u32(d2_smem) + 1023) & ~1023u;
+  const uint32_t full = ring + kD2Stages * kD2Stage;
+  const uint32_t empty = full + 8 * kD2Stages;
+  const long long blocks = gridDim.x;
+  const int u0 = static_cast<int>(blockIdx.x * static_cast<long long>(units)
+                                  / blocks);
+  const int w_units = static_cast<int>((blockIdx.x + 1LL) * units / blocks)
+                      - u0;
+  const int c0 = 8 * u0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kD2Stages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {                       // producer
+    if (threadIdx.x % 32 == 0) {
+      for (int i = 0; i < stages; ++i) {
+        const int st = i % kD2Stages;
+        const uint32_t buf = ring + st * kD2Stage;
+        mbar_wait(empty + 8 * st, ((i / kD2Stages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * st, kD2Stage);
+        tma_load_2d(buf, &xmap, full + 8 * st, c0, i * kD2Rows);
+      }
+    }
+    return;
+  }
+  if (w_units > 4)
+    d2_consume<40>(s, ring, full, empty, stages, out, lb, c0, w_units);
+  else
+    d2_consume<32>(s, ring, full, empty, stages, out, lb, c0, w_units);
 }
 
 // D5: ndots (a multiple of 8) chained products acc = W @ X[(i % 8)
@@ -936,13 +1026,45 @@ int launch_batched_bf16(const void* s, const void* x, float* out,
   return 0;
 }
 
+// D2's grid: blocks of 4 units while the card has an SM for each, else
+// one block an SM (4 or 5 units), and never more than kD2Units a block
+int d2_blocks(int units, int sms) {
+  const int by4 = (units + 3) / 4;
+  const int least = (units + kD2Units - 1) / kD2Units;
+  const int blocks = by4 < sms ? by4 : sms;
+  return blocks > least ? blocks : least;
+}
+
+// X [steps][16][lb] read as the 2-D [16 steps, lb], one [kD2Rows, 64] box
+// a stage from the strip's first column; at 0 steps nothing is read and
+// the map stays empty
+int launch_steps_bf16(const void* s, const void* x, float* out, int steps,
+                      int lb, cudaStream_t st) {
+  if (steps > 0x7fffffff / 16) return static_cast<int>(cudaErrorInvalidValue);
+  alignas(64) CUtensorMap xmap = {};
+  const int stages = (steps + kD2Steps - 1) / kD2Steps;
+  int rc = 0;
+  if (stages > 0)
+    rc = tensor_map_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, lb,
+                       16 * steps, 64, kD2Rows);
+  int sms = 0;
+  if (rc == 0) rc = sm_count(&sms);
+  if (rc == 0) rc = launch_smem(dot_steps_bf16, kD2Smem);
+  if (rc) return rc;
+  const int units = lb / 8;
+  dot_steps_bf16<<<d2_blocks(units, sms), kD2Threads, kD2Smem, st>>>(
+      xmap, static_cast<const unsigned short*>(s), out, stages, units, lb);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // s [256][k], x [steps][k][lb], out [256][lb] (mode 0, dot) or [64][lb]
 // (1 repeat_add, 2 dot_acs), all row-major; dtype 0 f32 (k 8, 16 or 80),
-// 1 bf16 (mode dot, k 16); lb a multiple of 16
+// 1 bf16 (mode dot, k 16; x 16-byte aligned, as the tensor maps need); lb a
+// multiple of 16
 int dabjax_probe_dot_steps(const void* s, const void* x, void* out, int mode,
                            int dtype, int k, int steps, int lb,
                            void* stream) {
@@ -952,11 +1074,8 @@ int dabjax_probe_dot_steps(const void* s, const void* x, void* out, int mode,
   if (dtype == kBF16) {
     if (mode != kDot || k != 16)
       return static_cast<int>(cudaErrorInvalidValue);
-    dot_steps_bf16<<<lb / kStepCols, kStepThreads, 0, st>>>(
-        static_cast<const unsigned short*>(s),
-        static_cast<const unsigned short*>(x), static_cast<float*>(out),
-        steps, lb);
-    return last_error(0);
+    return last_error(launch_steps_bf16(s, x, static_cast<float*>(out), steps,
+                                        lb, st));
   }
   if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
   const float* sf = static_cast<const float*>(s);

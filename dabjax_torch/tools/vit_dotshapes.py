@@ -20,14 +20,17 @@ product:
 
 :func:`dot_steps_cuda` and :func:`dot_batched_cuda` run the kernels
 (``csrc/dots.cu``: f32 on the CUDA cores as FFMA, bf16 on the tensor
-cores with f32 accumulation, through ``mma.sync`` in the step loop and
-``wgmma`` fed and drained by TMA in the batched product);
+cores with f32 accumulation through ``wgmma``, X brought by TMA: in the
+step loop many steps ahead of the products through a ring in shared
+memory, in the batched product tile by tile, its output drained by TMA);
 :func:`dot_steps_torch` and :func:`dot_batched_torch` are their plain
 versions.  Inputs are the TPU probe's: ``default_rng(0)``, S then X,
 standard normal (float32, then the dtype).  :func:`sass_counts` counts
-the FFMA / HMMA instructions of each step, and the HGMMA of one tile of
-the batched bf16 product, in the built library.  :func:`step_tiles` is
-the f32 step kernel's map of threads to the rows and columns they own.
+the FFMA instructions of each f32 step, the HGMMA of one ring stage of
+the bf16 step loop and of one tile of the batched bf16 product, in the
+built library.  :func:`step_tiles` is the f32 step kernel's map of
+threads to the rows and columns they own, :func:`bf16_step_strips` the
+bf16 step kernel's columns by block.
 
 ``main()`` prints, for LB 4480 and 512, the TPU probe's cases: us per
 step from the slope between two step counts (8 and 32 at LB 4480, 32 and
@@ -54,9 +57,11 @@ from dabjax_torch.fec import viterbi_cuda
 from dabjax_torch.tools import vpu_probe
 
 __all__ = ["MODES", "DTYPES", "KS", "CASES", "LBS", "F32_TIMED",
-           "BATCHED_CASES", "ROWS", "STEP_WARPS", "WIDE_COLS", "steps_for",
+           "BATCHED_CASES", "ROWS", "STEP_WARPS", "WIDE_COLS",
+           "BF16_STAGE_STEPS", "BF16_UNITS", "STEPS_PAST_L2", "DOT_TOL",
+           "steps_for",
            "steps_long", "probe_inputs", "batched_inputs", "step_cols",
-           "step_tiles",
+           "step_tiles", "bf16_step_strips",
            "dot_steps_cuda", "dot_steps_torch", "dot_batched_cuda",
            "dot_batched_torch", "probe", "probe_batched", "probe2",
            "sass_counts", "reset_launches", "main"]
@@ -92,6 +97,18 @@ BATCHED_CASES = (("batched dot f32", "float32"),
 #: a warp above 4 warps an SM (``csrc/dots.cu``: kStepWarps, kWideCols)
 STEP_WARPS = 4
 WIDE_COLS = 9
+#: the bf16 step kernel's steps of X a ring stage and its most 8-column
+#: units a block (``csrc/dots.cu``: kD2Steps, kD2Units)
+BF16_STAGE_STEPS = 8
+BF16_UNITS = 5
+#: the bf16 step loop's step counts past the L2 (50 MB) at LB 4480: X of
+#: 73 and 294 MB, read from device memory by every call
+STEPS_PAST_L2 = (512, 2048)
+#: the kernels' tolerance on the TPU probe's standard-normal inputs,
+#: |kernel - plain| over max |plain|: float32 sums of the same products in
+#: another order (FMA chains or tensor-core sums on the card, blocked
+#: products in torch)
+DOT_TOL = 1e-5
 #: launches of the step-loop kernels since the last reset: f32 (D1) and
 #: bf16 (D2)
 LAUNCHES = 0
@@ -178,6 +195,19 @@ def step_tiles(lb: int, mode: str = "dot", sms: int = 132):
             yield gw // STEP_WARPS, gw % STEP_WARPS, lane, rows, cols
 
 
+def bf16_step_strips(lb: int, sms: int = 132) -> list:
+    """The bf16 step kernel's columns, block by block: [(first column,
+    columns)], as ``csrc/dots.cu`` computes them.  Columns go in 8-column
+    units: blocks of 4 units while there are SMs for them, else one block
+    an SM (4 or 5 units each: 132 blocks of 32 or 40 columns at LB 4480),
+    never more than :data:`BF16_UNITS`; block b owns units b * units //
+    blocks up to (b + 1) * units // blocks."""
+    units = lb // 8
+    blocks = max(min(sms, -(-units // 4)), -(-units // BF16_UNITS))
+    starts = [b * units // blocks for b in range(blocks + 1)]
+    return [(8 * u0, 8 * (u1 - u0)) for u0, u1 in zip(starts, starts[1:])]
+
+
 def _dtype(s: torch.Tensor, x: torch.Tensor, name: str) -> str:
     for key, dt in DTYPES.items():
         if s.dtype == dt and x.dtype == dt:
@@ -213,6 +243,9 @@ def dot_steps_cuda(s: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"dot_steps_cuda: built for LB a multiple of 16, "
                          f"f32 K in {KS}, bf16 K 16 in mode dot; got LB "
                          f"{lb}, K {k}, {dtype} {mode}")
+    if dtype == "bfloat16" and x.data_ptr() % 16:
+        raise ValueError("dot_steps_cuda: bf16 X must be 16-byte aligned "
+                         "(its TMA tensor map)")
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
@@ -366,21 +399,24 @@ def sass_counts() -> dict:
     """{case: instructions of one step} in the built library: FFMA and
     FMUL of the f32 step kernel per mode and K (FADD for repeat_add), in
     its :data:`WIDE_COLS` build (a thread's step: 8 rows x 9 columns x K
-    FFMA), HMMA of the bf16 one; and "batched bf16 K=16": the HGMMA
-    (wgmma) of the batched bf16 product, one a 64-row slab of a tile.  The
-    step and tile loops are not unrolled, so a kernel's count is one
-    step's or one tile's (0 would mean the work was folded away, or that
-    the batched product does not run on wgmma)."""
+    FFMA); "dot bf16 K=16": the HGMMA (wgmma) of the bf16 step kernel, one
+    ring stage of each of its two paths (m64n40k16 for a strip of 5
+    units, m64n32k16 for fewer: 2 x :data:`BF16_STAGE_STEPS` steps x 4
+    slabs); and "batched bf16 K=16": the HGMMA of the batched bf16
+    product, one a 64-row slab of a tile.  The step, stage and tile loops
+    are not unrolled, so a kernel's count is one step's, stage's or
+    tile's (0 would mean the work was folded away, or that a bf16 product
+    does not run on wgmma)."""
     wide = rf"dot_steps_f32ILi(\d+)ELi(\d+)ELi{WIDE_COLS}E"
     f32 = vpu_probe._sass_lengths(wide, ops=("FFMA", "FMUL"))
     adds = vpu_probe._sass_lengths(wide, ops=("FADD",))
-    hmma = vpu_probe._sass_lengths(r"dot_steps_bf16E", ops=("HMMA",))
     out = {f"{mode} f32 K={k}": f32.get((MODES.index(mode), k), 0)
            for mode in ("dot", "dot_acs") for k in KS}
     out["repeat_add f32"] = adds.get((MODES.index("repeat_add"), 1), 0)
-    out["dot bf16 K=16"] = hmma.get((), 0)
-    hgmma = vpu_probe._sass_lengths(r"dot_batched_bf16E", ops=("HGMMA",))
-    out["batched bf16 K=16"] = hgmma.get((), 0)
+    for case, kernel in (("dot bf16 K=16", "dot_steps_bf16"),
+                         ("batched bf16 K=16", "dot_batched_bf16")):
+        out[case] = vpu_probe._sass_lengths(rf"{kernel}E",
+                                            ops=("HGMMA",)).get((), 0)
     return out
 
 

@@ -227,6 +227,32 @@ def test_step_kernel_matches_plain_on_card(mode, k, lb, steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps", [0, 1, 33])
+@pytest.mark.parametrize("lb", [16, 512, 4480, 4496])
+def test_bf16_step_kernel_matches_plain_on_card(lb, steps):
+    """D2 (wgmma, X through a TMA ring) within DOT_TOL of max |plain| on
+    the TPU probe's normal inputs and exact on small integers cast to
+    bf16: one block of 2 units (LB 16), blocks of 4 (512), of 4 and 5
+    (4480; 4496, whose last 32-column box runs past LB), a partial ring
+    stage (1 and 33 steps) and no step."""
+    dev = _card()
+    s, x = (t.to(dev) for t in vd.probe_inputs(16, lb, steps, "bfloat16",
+                                                 seed=lb + steps))
+    want = vd.dot_steps_torch(s, x)
+    got = vd.dot_steps_cuda(s, x)
+    torch.cuda.synchronize()
+    if steps == 0:
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= \
+            vd.DOT_TOL * float(want.abs().max())
+    si = _ints((256, 16), 1, seed=16, dtype=torch.bfloat16).to(dev)
+    xi = _ints((steps, 16, lb), 3, seed=lb + steps,
+               dtype=torch.bfloat16).to(dev)
+    assert torch.equal(vd.dot_steps_cuda(si, xi), vd.dot_steps_torch(si, xi))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [0, 8, 1000])
 @pytest.mark.parametrize("cols", [16, 4480, 4496])
 def test_dots_kernel_matches_plain_on_card(cols, n):

@@ -178,6 +178,9 @@ def test_dot_inputs_are_the_tpu_probes():
 _WRAPPERS = {
     "dot_steps": lambda: vd.dot_steps_cuda(torch.ones((256, 16)),
                                            torch.ones((2, 16, 16))),
+    "dot_steps_bf16": lambda: vd.dot_steps_cuda(
+        torch.ones((256, 16), dtype=torch.bfloat16),
+        torch.ones((2, 16, 16), dtype=torch.bfloat16)),
     "dot_batched": lambda: vd.dot_batched_cuda(torch.ones((256, 16)),
                                                torch.ones((16, 16))),
     "dots": lambda: vpu_probe2.dots_cuda(torch.ones((64, 16)),
@@ -206,8 +209,10 @@ _SASS = """
         /*0020*/                   FADD R3, R1, R2 ;                        /* 0x0000000000007221 */
 \t\tFunction : _ZN12_GLOBAL__N_113dot_steps_f32ILi0ELi16ELi1EEEvPKfS2_Pfiii
         /*0000*/                   FFMA R0, R1, R2, R0 ;                    /* 0x0000000000007223 */
-\t\tFunction : _ZN12_GLOBAL__N_114dot_steps_bf16EPKtS1_Pfii
-        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;    /* 0x0000000000007223 */
+\t\tFunction : _ZN12_GLOBAL__N_114dot_steps_bf16E14CUtensorMap_stS0_PKtPfiii
+        /*0000*/                   HGMMA.64x32x16.F32.BF16 R24, R4, gdesc[UR4], R24, gsb0 ;  /* 0x0000000000007223 */
+        /*0010*/                   HGMMA.64x8x16.F32.BF16 R88, R4, gdesc[UR8], R88, gsb0 ;  /* 0x0000000000007223 */
+        /*0020*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;    /* 0x0000000000007223 */
 \t\tFunction : _ZN12_GLOBAL__N_116dot_batched_bf16E14CUtensorMap_stS0_PKtix
         /*0000*/                   HGMMA.64x64x16.F32.BF16 R24, R4, gdesc[UR4], RZ, !UPT ;  /* 0x0000000000007223 */
         /*0010*/                   HGMMA.64x64x16.F32.BF16 R56, R8, gdesc[UR4], RZ, !UPT ;  /* 0x0000000000007223 */
@@ -222,10 +227,11 @@ _SASS = """
 def test_sass_counts_read_cuobjdump(monkeypatch):
     """The per-step and per-dot counts read the kernels' template
     arguments and count only the named instructions (the f32 step
-    kernel's: its 9-column build only)."""
+    kernel's: its 9-column build only; the bf16 step kernel's: its
+    wgmma, HGMMA of any width, not HMMA)."""
     monkeypatch.setattr(_build, "sass", lambda: _SASS)
     counts = vd.sass_counts()
-    assert counts["dot f32 K=16"] == 2 and counts["dot bf16 K=16"] == 1
+    assert counts["dot f32 K=16"] == 2 and counts["dot bf16 K=16"] == 2
     assert counts["dot_acs f32 K=16"] == 0
     assert counts["batched bf16 K=16"] == 2
     assert vpu_probe2.dot_sass_counts()["uv [32,8]"] == 3 / 8
@@ -268,12 +274,37 @@ def test_step_tiles_store_every_output_once(lb, mode):
     assert (out == 1).all()
 
 
+@pytest.mark.parametrize("lb", [16, 512, 4480, 4496])
+def test_bf16_step_strips_cover_every_column_once(lb):
+    """D2's blocks (``bf16_step_strips``, as ``csrc/dots.cu`` computes
+    them): contiguous strips of whole 8-column units that cover every
+    column once, at most 132 of them (one an SM) and at most 40 columns
+    each, the busiest SM's share with 8-column units balanced over 132
+    SMs; 132 blocks of 32 or 40 columns at LB 4480 (where strips of 32
+    would be 140), 16 of 32 at LB 512."""
+    strips = vd.bf16_step_strips(lb)
+    out = np.zeros(lb, dtype=np.int64)
+    for c0, cols in strips:
+        assert cols % 8 == 0 and 0 < cols <= 8 * vd.BF16_UNITS == 40
+        out[c0:c0 + cols] += 1
+    assert (out == 1).all() and len(strips) <= 132
+    assert [c0 for c0, _ in strips] == sorted(c0 for c0, _ in strips)
+    widths = {cols for _, cols in strips}
+    assert {4480: widths == {32, 40} and len(strips) == 132,
+            4496: widths == {32, 40} and len(strips) == 132,
+            512: widths == {32} and len(strips) == 16,
+            16: strips == [(0, 16)]}[lb]
+
+
 def test_dot_variants_apply_to_the_kernel_source(monkeypatch):
     """``tools.dot_variants`` edits ``csrc/dots.cu`` by text: every edit of
     every variant is found exactly once in the source as it stands when
     it is applied; the earlier designs come in beside the kernels and
-    the entry points call them; without a card its ``main()`` says so
-    and fails."""
+    the entry points call them (D2's too); ``mma_sync`` takes D2's wgmma
+    out of its step body, ``stage_16`` and ``strips_32`` change D2's
+    stage length and strip width alone; each variant names the probes it
+    changes;
+    without a card its ``main()`` says so and fails."""
     src = (_build.CSRC / "dots.cu").read_text()
     for name, edits in dot_variants.VARIANTS.items():
         text = src
@@ -286,6 +317,23 @@ def test_dot_variants_apply_to_the_kernel_source(monkeypatch):
     assert "launch_steps_c<kRepeatAdd" not in earlier
     assert earlier.count("launch_dots_earlier<") == len(
         vpu_probe2.DOT_SHAPES)
+    assert "last_error(launch_steps_bf16(" not in earlier
+    assert "last_error(launch_steps_bf16_earlier(" in earlier
+    assert earlier.count("dot_steps_bf16_earlier<<<") == 1
+    ring = dot_variants.variant_source(src,
+                                       dot_variants.VARIANTS["mma_sync"])
+    consume = ring[ring.index("void d2_consume("):
+                   ring.index("dot_steps_bf16(const")]
+    assert "wgmma" not in consume and "ldmatrix" in consume
+    assert consume.count("mma_ring(") == 1
+    for name, const in (("stage_16", "kD2Steps = 16;"),
+                        ("strips_32", "kD2Units = 4;")):
+        text = dot_variants.variant_source(src, dot_variants.VARIANTS[name])
+        lines = list(zip(src.splitlines(), text.splitlines()))
+        assert const in text and sum(x != y for x, y in lines) == 1
+    assert sorted(dot_variants.PROBES) == sorted(dot_variants.VARIANTS)
+    assert {p for ps in dot_variants.PROBES.values() for p in ps} == {
+        "D1", "D2", "D5"}
     with pytest.raises(ValueError, match="not once"):
         dot_variants.variant_source(src, [("no such text", "")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
