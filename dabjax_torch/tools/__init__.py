@@ -23,6 +23,8 @@ wrapper on an H100 host).
 
 from __future__ import annotations
 
+import gc
+import statistics
 import sys
 import time
 
@@ -53,19 +55,48 @@ def have_card(name: str) -> bool:
     return False
 
 
-def cuda_ms(fn, reps: int) -> float:
+def _host_counts() -> tuple:
+    return (sum(s["collections"] for s in gc.get_stats()),
+            torch.cuda.memory_stats().get("segment.all.allocated", 0))
+
+
+def cuda_ms(fn, reps: int, host: dict | None = None) -> float:
     """Mean ms of ``fn()`` over ``reps`` calls, by CUDA events, after one
-    warm-up call."""
+    warm-up call.  A ``host`` dict gets what the host did meanwhile:
+    ``issue_ms``, its wall ms from the start event's record to the end
+    event's (where it comes near ``reps`` times the reading, the device
+    waited on the host), ``gc``, the garbage collections run, and
+    ``mallocs``, the device segments the caching allocator took."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    before = _host_counts() if host is not None else None
+    t = time.perf_counter()
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
+    issue = time.perf_counter() - t
     torch.cuda.synchronize()
+    if host is not None:
+        gcs, mallocs = (a - b for a, b in zip(_host_counts(), before))
+        host.update(issue_ms=issue * 1e3, gc=gcs, mallocs=mallocs)
     return t0.elapsed_time(t1) / reps
+
+
+def interleaved_ms(fns: dict, runs: int, reps: int = 10,
+                   timer=cuda_ms) -> dict:
+    """{name: {median, min, max}} ms of each ``fns[name]()`` over ``runs``
+    runs of ``reps`` calls (each run timed by ``timer``, :func:`cuda_ms`
+    or :func:`device_ms`), the runs taken in turns (a, b, b, a, ...)."""
+    times = {name: [] for name in fns}
+    for run in range(runs):
+        order = list(fns) if run % 2 == 0 else list(fns)[::-1]
+        for name in order:
+            times[name].append(timer(fns[name], reps))
+    return {name: dict(median=statistics.median(v), min=min(v), max=max(v))
+            for name, v in times.items()}
 
 
 #: the device sleep's cycles a second of sleep (the H100's top SM clock is

@@ -59,7 +59,6 @@ is timed on the probes whose code it changes (:data:`PROBES`).
 from __future__ import annotations
 
 import ctypes
-import statistics
 import subprocess
 import sys
 
@@ -578,11 +577,8 @@ def _load(name: str) -> ctypes.CDLL:
 def _in_turns(fns: dict) -> dict:
     """{key: median device ms} (``tools.device_ms``) of 4 runs of 20 calls
     of each ``fns[key]()``, in turns."""
-    times = {key: [] for key in fns}
-    for run in range(4):
-        for key in (list(fns) if run % 2 == 0 else list(fns)[::-1]):
-            times[key].append(tools.device_ms(fns[key], 20))
-    return {key: statistics.median(v) for key, v in times.items()}
+    spread = tools.interleaved_ms(fns, 4, 20, tools.device_ms)
+    return {key: v["median"] for key, v in spread.items()}
 
 
 def _slopes(fns: dict, n1: int, n2: int) -> dict:

@@ -49,7 +49,7 @@ from dabjax_torch.tools import vit_variants as vv
 from dabjax_torch.tools import vit_variants2 as vv2
 from dabjax_torch.tools.word_variants import _in_turns, _line, variant_source
 
-__all__ = ["VARIANTS", "P4_MODES", "P1_VARIANTS", "main"]
+__all__ = ["VARIANTS", "P4_MODES", "P1_VARIANTS", "build_variant", "main"]
 
 _PLANE_STORE = ("        __stcs(dst + i, row < live ? stage[warp][i] : "
                 "make_int4(0, 0, 0, 0));")
@@ -110,7 +110,7 @@ P4_MODES = {"l2_prefetch_2": vv.MODES, "l2_prefetch_4": vv.MODES,
 P1_VARIANTS = ("l2_256b", "p1_ring_2", "plain_stores")
 
 
-def _build_variant(name: str, text: str) -> subprocess.Popen:
+def build_variant(name: str, text: str) -> subprocess.Popen:
     """Start nvcc of ``text`` (a probes.cu) alone into
     build/variants/plane_<name>.so."""
     out = _build.BUILD / "variants"
@@ -139,7 +139,7 @@ def main() -> int:
     B, nbits = tools.CODEWORDS, tools.NBITS
     soft = torch.from_numpy(tools.soft_bits(B, nbits, seed=6)).to(dev)
     src = (_build.CSRC / "probes.cu").read_text()
-    jobs = {name: _build_variant(name, variant_source(src, edits))
+    jobs = {name: build_variant(name, variant_source(src, edits))
             for name, edits in VARIANTS.items()}
     for name, job in jobs.items():
         _, err = job.communicate()

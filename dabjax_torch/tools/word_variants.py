@@ -28,7 +28,6 @@ median (min-max) of 4 runs of 20 calls, the variants taken in turns.
 from __future__ import annotations
 
 import ctypes
-import statistics
 import subprocess
 import sys
 
@@ -209,12 +208,9 @@ def _build_variant(name: str, text: str) -> ctypes.CDLL:
 def _in_turns(fns: dict) -> dict:
     """{name: (median, min, max)} device ms (``tools.device_ms``) of 4
     runs of 20 calls, in turns."""
-    times = {name: [] for name in fns}
-    for run in range(4):
-        for name in (list(fns) if run % 2 == 0 else list(fns)[::-1]):
-            times[name].append(tools.device_ms(fns[name], 20))
-    return {name: (statistics.median(v), min(v), max(v))
-            for name, v in times.items()}
+    spread = tools.interleaved_ms(fns, 4, 20, tools.device_ms)
+    return {name: (v["median"], v["min"], v["max"])
+            for name, v in spread.items()}
 
 
 def _line(label: str, spread: dict, same: dict) -> str:

@@ -175,6 +175,23 @@ def test_copy_kernel_bit_exact_on_card(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["seed", "out_of_range"])
+@pytest.mark.parametrize("shape", [(1160, 16, 4480), (8, 1, 4), (24, 3, 36),
+                                   (65528, 1, 4)])
+def test_decision_plane_bit_exact_on_card(shape, kind):
+    """The plane kernel against its plain version, on integer block
+    starts and on starts outside int8 (saturated, NaN to 0), up to the
+    grid's 65535 rows."""
+    dev = _card()
+    make = hbm_probe.input_block if kind == "seed" else hbm_probe.odd_block
+    x = make(shape, seed=4).to(dev)
+    got = hbm_probe.decision_plane_cuda(x)
+    want = hbm_probe.decision_plane_torch(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [32 * 4480, 4488])
 def test_batched_bf16_kernel_on_card(n):
     """D4 exact on integer inputs, within 1e-5 of max |plain| on the TPU

@@ -326,13 +326,55 @@ def test_copy_matches_tpu_probe():
     assert not np.array_equal(got, x)
 
 
-def test_decision_plane_matches_tpu_probe():
-    x = hbm_probe.input_block((24, 16, 256), seed=6)
+@pytest.mark.parametrize("kind", ["seed6", "out_of_range"])
+def test_decision_plane_matches_tpu_probe(kind):
+    """Bit for bit with XLA's cast, which truncates and saturates (NaN to
+    0), also where the 8-step blocks start outside int8."""
+    if kind == "seed6":
+        x = hbm_probe.input_block((24, 16, 256), seed=6)
+    else:
+        x = hbm_probe.odd_block((64, 16, 256), seed=6)
     got = hbm_probe.decision_plane_torch(x)
     want = _tpu_plane(x.numpy(), C=hbm_probe.PLANE_BLOCK)
-    assert got.dtype == torch.int8 and tuple(got.shape) == (24, 64, 256)
+    assert got.dtype == torch.int8 and tuple(got.shape) == (len(x), 64, 256)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert len(np.unique(want)) == 3        # one value per 8-row block
+    if kind == "seed6":
+        assert len(np.unique(want)) == 3    # one value per 8-row block
+    else:
+        assert want[::8, 0, 0].tolist() == [127, -128, 127, -128, 0, 127,
+                                            -128, 0]
+
+
+def test_decision_plane_shape_checks():
+    """The wrapper refuses T not a multiple of 8, no input row, and T
+    above 65535 (the rows are the kernel's grid.y); a good shape stops
+    only at the CPU tensor."""
+    with pytest.raises(ValueError, match="multiple of 8"):
+        hbm_probe.decision_plane_cuda(torch.zeros((12, 1, 4)))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        hbm_probe.decision_plane_cuda(torch.zeros((8, 0, 4)))
+    with pytest.raises(ValueError, match="65535"):
+        hbm_probe.decision_plane_cuda(
+            torch.zeros((1, 1, 1)).expand(65544, 1, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        hbm_probe.decision_plane_cuda(torch.zeros((65528, 1, 4)))
+
+
+def test_plane_store_variants_apply_to_the_kernel_source(monkeypatch):
+    """``hbm_probe --variants`` edits ``csrc/probes.cu`` by text: each
+    variant's texts are found once in the source as it is; a wrong
+    argument is refused and, without a card, the mode fails."""
+    from dabjax_torch import _build
+    from dabjax_torch.tools.word_variants import variant_source
+    src = (_build.CSRC / "probes.cu").read_text()
+    for edits in hbm_probe.VARIANTS.values():
+        assert all(src.count(old) == 1 for old, _ in edits)
+    earlier = variant_source(src, hbm_probe.VARIANTS["earlier"])
+    assert "__stcs(out + static_cast<size_t>(t)" not in earlier
+    assert "out[static_cast<size_t>(t) * row16 + i] =" in earlier
+    assert hbm_probe.main(["--bogus"]) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert hbm_probe.main(["--variants"]) == 1
 
 
 def test_input_block_is_int8_valued():
@@ -379,3 +421,20 @@ def test_probe_main_without_a_card_fails(mod, capsys):
     assert mod.main() == 1
     err = capsys.readouterr()
     assert "no CUDA card" in err.err and not err.out
+
+
+def test_interleaved_ms_takes_runs_in_turns():
+    """``tools.interleaved_ms`` times the functions in turns (a, b, b, a,
+    ...) by the timer it is given, and keeps each one's median and range."""
+    from dabjax_torch import tools
+    calls = []
+
+    def timer(fn, reps):
+        assert reps == 10
+        calls.append(fn())
+        return float(len(calls))
+    spread = tools.interleaved_ms({"a": lambda: "a", "b": lambda: "b"}, 3,
+                                  10, timer)
+    assert calls == ["a", "b", "b", "a", "a", "b"]
+    assert spread == {"a": dict(median=4.0, min=1.0, max=5.0),
+                      "b": dict(median=3.0, min=2.0, max=6.0)}
