@@ -129,7 +129,8 @@ def cmd_info(args) -> int:
     r = _build_receiver(args)
     if getattr(args, "watch", 0):
         # live dashboard: re-run block batches and redraw (the
-        # scope/waterfall loop of the reference GUI, scope.cpp); the
+        # scope/waterfall loop of the reference GUI, scope.cpp), with the
+        # receiver's host time by span under the service list; the
         # waterfall panel keeps the last 12 block spectra (scope.cpp:384
         # scrolling history)
         from collections import deque
@@ -141,6 +142,7 @@ def cmd_info(args) -> int:
             if r.metrics.synced:
                 history.append(np.asarray(r.metrics.spectrum))
                 _print_db(r)
+                print(r.profiler.report())
                 if args.scope:
                     _print_scopes(r)
                     print("waterfall (oldest on top):")

@@ -2,10 +2,12 @@
 :mod:`dabjax.runtime.profiling`).
 
 * :class:`StageProfiler`: cheap wall-time and throughput counters per
-  pipeline stage, suitable for always-on use; renders a text dashboard
-  (dabjax's own, copied).
+  span, always on; renders a text dashboard (``info --watch`` prints it).
+  The receiver's spans are named once, in :data:`SPANS`.
 * :func:`device_trace` runs the body under ``torch.profiler`` and writes a
-  Chrome trace (open it in Perfetto or ``chrome://tracing``).
+  Chrome trace (open it in Perfetto or ``chrome://tracing``); inside it
+  every span also opens a ``record_function`` range of its name, on the
+  trace's clock.
 """
 
 from __future__ import annotations
@@ -18,7 +20,22 @@ from typing import Dict, Iterator
 
 import torch
 
-__all__ = ["StageProfiler", "device_trace"]
+__all__ = ["SPANS", "StageProfiler", "device_trace"]
+
+#: the receiver's spans, in the order a block opens them
+SPANS = (
+    "source",        # receiver: the source read into the sample buffer
+    "stage_host",    # receiver: row stacking, upload and block-graph issue
+    "blockgraph",    # block graph: BlockFn.frames + assemble (in stage_host)
+    "msc",           # MSC chain: geometries, decoder key, fused issue
+    "pull",          # receiver: the block's one device-to-host copy
+    "consume_host",  # receiver: the pulled blob parsed, correctors, FIBs
+    "route",         # host plane: frames to handlers (in consume_host)
+)
+
+#: set while a :func:`device_trace` body runs: spans then also open a
+#: ``record_function`` range
+_recording = False
 
 
 @dataclass
@@ -30,7 +47,7 @@ class _Stage:
 
 @dataclass
 class StageProfiler:
-    """Accumulates per-stage wall time and item throughput.
+    """Accumulates per-span wall time and item throughput.
 
     >>> prof = StageProfiler()
     >>> with prof.stage("demod", items=n_samples):
@@ -39,27 +56,21 @@ class StageProfiler:
     """
 
     stages: Dict[str, _Stage] = field(default_factory=dict)
-    enabled: bool = True
 
     @contextlib.contextmanager
     def stage(self, name: str, items: float = 0.0) -> Iterator[None]:
-        if not self.enabled:
-            yield
-            return
         t0 = time.perf_counter()
         try:
-            yield
+            if _recording:
+                with torch.profiler.record_function(name):
+                    yield
+            else:
+                yield
         finally:
             st = self.stages.setdefault(name, _Stage())
             st.calls += 1
             st.seconds += time.perf_counter() - t0
             st.items += items
-
-    def add(self, name: str, seconds: float, items: float = 0.0) -> None:
-        st = self.stages.setdefault(name, _Stage())
-        st.calls += 1
-        st.seconds += seconds
-        st.items += items
 
     def report(self, realtime_rate: float = 2_048_000.0) -> str:
         """Text dashboard; ``realtime_rate`` converts item counts that are
@@ -75,28 +86,31 @@ class StageProfiler:
                          f"{per:>8.2f} {rate:>12.0f} {rt:>7.1f}")
         return "\n".join(lines)
 
-    def as_dict(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"calls": v.calls, "seconds": v.seconds,
-                    "items": v.items} for k, v in self.stages.items()}
-
 
 @contextlib.contextmanager
 def device_trace(logdir: str) -> Iterator[torch.profiler.profile]:
     """Profile the body: CPU activity, plus CUDA activity where a card is
     present; yields the profiler and, on exit, writes
     ``logdir/trace_<ns>.json`` (the path is the profiler's ``trace_path``
-    attribute).
+    attribute).  While the body runs, every :class:`StageProfiler` span
+    is also a ``record_function`` range, so each device operation's
+    launch lies in the span that issued it.
 
     Unlike dabjax's, which degrades silently to a no-op, a trace that
     cannot start or be written raises, and so does a trace on a card that
     recorded no CUDA activity."""
+    global _recording
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
+    was, _recording = _recording, True
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        _recording = was
     if cuda and not any(e.device_type == torch.autograd.DeviceType.CUDA
                         for e in prof.events()):
         raise RuntimeError("device_trace: the profiler recorded no CUDA "

@@ -15,6 +15,10 @@ torch:
 
 IQ is uploaded as raw uint8 pairs when the source offers ``read_u8``
 (the ``u8`` kind) and as float32 pairs otherwise (the ``f32`` kind).
+
+Each block's host work is timed by ``self.profiler`` in the spans that
+:data:`dabjax_torch.runtime.profiling.SPANS` names, one of each a block
+once locked (``msc`` only when audio or data is decoded).
 """
 
 from __future__ import annotations
@@ -408,14 +412,17 @@ class Receiver:
         each on its position's device, joined on the home device."""
         devices = [self.device] if self.mesh is None \
             else self.mesh.positions()
-        shards = []
-        for part, dev in zip(torch.tensor_split(rows, len(devices)),
-                             devices):
-            with on_device(dev):
-                coarse = torch.full((part.shape[0],), self._coarse_hz,
-                                    dtype=torch.float32, device=dev)
-                shards.append(self._block_fn.frames(part.to(dev), coarse))
-        return self._block_fn.assemble(shards, self.device)
+        with self.profiler.stage("blockgraph",
+                                 items=rows.shape[0] * self.p.T_F):
+            shards = []
+            for part, dev in zip(torch.tensor_split(rows, len(devices)),
+                                 devices):
+                with on_device(dev):
+                    coarse = torch.full((part.shape[0],), self._coarse_hz,
+                                        dtype=torch.float32, device=dev)
+                    shards.append(self._block_fn.frames(part.to(dev),
+                                                        coarse))
+            return self._block_fn.assemble(shards, self.device)
 
     # --------------------------------------------------------------- I/O
 
@@ -423,10 +430,11 @@ class Receiver:
         """Grow the buffer to cover absolute sample index < abs_end."""
         need = abs_end - (self._buf_base + self._len)
         if need > 0:
-            chunk = (self.source.read_u8(int(need)) if self._u8
-                     else self.source.read(int(need)))
-            if chunk.shape[0]:
-                self._buf_append(chunk)
+            with self.profiler.stage("source", items=need):
+                chunk = (self.source.read_u8(int(need)) if self._u8
+                         else self.source.read(int(need)))
+                if chunk.shape[0]:
+                    self._buf_append(chunk)
             if chunk.shape[0] < need:
                 return False
         return True
@@ -517,21 +525,22 @@ class Receiver:
         merged = None
         warmup = 0
         if self.cfg.decode_audio or self.cfg.decode_data:
-            geoms = self._geometries()
-            if geoms:
-                key = tuple(sorted((g.subch_id,) + g.shape_key
-                                   + (g.start_addr,) for g in geoms))
-                if key != self._decoder_key:
-                    self._decoder = EnsembleDecoder(
-                        geoms, p, mesh=self.mesh, device=self.device)
-                    self._decoder_key = key
-                warmup = max(0, HISTORY - self._hist_valid)
-                merged, self._cif_hist, bucket_meta = \
-                    self._decoder.fused(self._cif_hist, cifs, blob)
-                self._hist_valid = min(HISTORY,
-                                       self._hist_valid + cifs.shape[0])
-            else:
-                self._push_history(cifs)
+            with self.profiler.stage("msc", items=F * p.T_F):
+                geoms = self._geometries()
+                if geoms:
+                    key = tuple(sorted((g.subch_id,) + g.shape_key
+                                       + (g.start_addr,) for g in geoms))
+                    if key != self._decoder_key:
+                        self._decoder = EnsembleDecoder(
+                            geoms, p, mesh=self.mesh, device=self.device)
+                        self._decoder_key = key
+                    warmup = max(0, HISTORY - self._hist_valid)
+                    merged, self._cif_hist, bucket_meta = \
+                        self._decoder.fused(self._cif_hist, cifs, blob)
+                    self._hist_valid = min(HISTORY,
+                                           self._hist_valid + cifs.shape[0])
+                else:
+                    self._push_history(cifs)
         if merged is None:
             merged = blob
         n_fib = fic_codewords_per_frame(p) * fic_profile(p)[2]
@@ -645,12 +654,13 @@ class Receiver:
             self._bad_blocks = 0
 
         # ----- MSC routing (bytes straight from the device bit-packing)
-        for geoms, shape in blk.buckets:
-            nbytes = int(np.prod(shape))
-            arr = big[off: off + nbytes].reshape(shape)
-            off += nbytes
-            for i, g in enumerate(geoms):
-                self._route_rows(g.subch_id, arr[i], blk.warmup)
+        with self.profiler.stage("route", items=F * p.T_F):
+            for geoms, shape in blk.buckets:
+                nbytes = int(np.prod(shape))
+                arr = big[off: off + nbytes].reshape(shape)
+                off += nbytes
+                for i, g in enumerate(geoms):
+                    self._route_rows(g.subch_id, arr[i], blk.warmup)
 
     # --------------------------------------------------------------- step
 

@@ -419,3 +419,58 @@ def test_mesh_home_accepts_bare_cuda():
     with pytest.raises(ValueError, match="home"):
         EnsembleDecoder([], get_mode(1), mesh,
                         device=torch.device("cuda", dev.index + 1))
+
+
+@pytest.mark.cuda
+def test_receiver_k1_launches_lie_in_their_spans_on_card(tmp_path):
+    """Under ``device_trace``, every K1 launch of a locked receiver's
+    blocks (its ``cuda_runtime`` event, joined to the kernel by the
+    correlation id) lies inside a ``blockgraph`` or ``msc`` range: the
+    FIC's decode or the MSC chain's.  So does every other kernel's
+    launch, by ``cudaLaunchKernel`` or ``cuLaunchKernel`` (cuFFT's)."""
+    import json
+    from dabjax_torch.runtime.config import ReceiverConfig
+    from dabjax_torch.runtime.profiling import device_trace
+    from dabjax_torch.runtime.receiver import Receiver
+    from dabjax_torch.testing import (LoopSource, bench_services,
+                                      golden_modulator)
+
+    dev = _card()
+    iq = golden_modulator(mode=1, services=bench_services("mixed")).frames(24)
+    rx = Receiver(LoopSource(iq),
+                  ReceiverConfig(frames_per_block=4, decode_audio=False,
+                                 decode_data=True), device=dev)
+    try:
+        for _ in range(8):
+            assert rx.step()
+        assert rx.metrics.synced and len(rx._geometries()) == 3
+        torch.cuda.synchronize()
+        vc.reset_launches()
+        with device_trace(str(tmp_path)) as prof:
+            for _ in range(3):
+                assert rx.step()
+            torch.cuda.synchronize()
+        launched = vc.FORWARD_LAUNCHES
+    finally:
+        rx.close()
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name") in ("blockgraph", "msc")]
+    assert len(ranges) == 6
+    def launches(cats):
+        return {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in cats and "correlation" in e.get("args", {})}
+
+    def inside(kernels, launch):
+        for e in kernels:
+            t = launch[e["args"]["correlation"]]
+            assert any(a <= t <= b for a, b in ranges), e["name"]
+
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "forward_acs" in e["name"]
+          and "forward_acs_words" not in e["name"]]
+    assert launched > 0 and len(k1) == launched
+    inside(k1, launches(("cuda_runtime",)))
+    inside(kernels, launches(("cuda_runtime", "cuda_driver")))

@@ -110,6 +110,28 @@ def test_module_entry_point_parses_like_dabjax(tmp_path):
         assert cmd in res.stdout
 
 
+def test_info_watch_prints_the_span_table(raw_file, capsys):
+    """``info --watch`` prints the receiver's span table (``StageProfiler
+    .report()``) under the service list of each block it redraws."""
+    rc = cli.main(["--device", "cpu", "info", raw_file, "--watch", "2"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    frames = out.split("\x1b[2J\x1b[H")[1:]
+    assert len(frames) == 2
+    for i, frame in enumerate(frames, 1):
+        lines = frame.splitlines()
+        assert lines[0] == f"[block {i}/2]"
+        assert any("PORTCLI" in line for line in lines)
+        head = next(k for k, line in enumerate(lines)
+                    if line.split()[:2] == ["stage", "calls"])
+        assert lines[head].rstrip().endswith("x RT")
+        rows = {line.split()[0]: int(line.split()[1])
+                for line in lines[head + 1:] if line.strip()}
+        assert rows["stage_host"] == rows["consume_host"] == i
+        assert head > max(k for k, line in enumerate(lines)
+                          if "PORTCLI" in line)
+
+
 def test_device_trace_writes_a_trace(tmp_path):
     x = torch.arange(4096, dtype=torch.float32)
     with device_trace(str(tmp_path / "trace")) as prof:
