@@ -124,9 +124,21 @@ non-zero exit at the first failure:
     launch of the step's first runs and of the mesh ``Receiver``'s first
     run held against its plain version at the shape the mesh gave it;
     the device ms of the mesh MSC chain with pad rows;
-    ``dryrun_multichip``.
+    ``dryrun_multichip``;
+12. demod: the demod kernels (``csrc/demod.cu``: ``guard_corr``,
+    ``mix_windows``, ``dqpsk_soft``) at the core cell's shape (360 frames
+    of mode I) on u8 rows of phase 4's golden IQ, each frame shifted by a
+    known fine CFO: windows, soft bits, CIF block and PRS spectrum equal
+    the plain chain's bit for bit given the same CFO; the fine CFO no
+    further from a float64 sum than the plain float32 sum's but 4 ulp,
+    and within ``DEMOD_OFFSET_HZ`` of the known offsets; the total CFO
+    fine + coarse bit for bit; one launch of each a call.  The device
+    time of each kernel and of its own plain step, of the FFT between
+    them, of the whole ``demodulate_rows`` and of the whole plain chain
+    (medians of 5 runs), each kernel beside its bytes at 3.35 TB/s.
 
-The kernels' launch counts are reset just before phases 4-5 (K1, K2),
+The kernels' launch counts are reset just before phases 4-5 (K1, K2
+and the demod kernels),
 phase 6 (K3, K4), the probes' ``main()`` runs of phase 10 (the probe
 kernels, and K3 for ``vit_split2``) and phase 11 (K1-K4; counted around
 the mesh path's own calls, not the references it is held to) and read
@@ -1882,6 +1894,179 @@ def phase_mesh(dev, report, golden, loop_iq):
     report["mesh"] = out
 
 
+#: phase 12's shape: the core cell's block (360 frames, mode I, u8 rows)
+DEMOD_FRAMES, DEMOD_MODE = 360, 1
+#: phase 12's fine CFOs: frame f of the block is shifted by one of
+#: DEMOD_FRAMES evenly spaced offsets in +-DEMOD_OFFSET carrier spacings
+DEMOD_OFFSET = 0.4
+#: Hz the kernels' fine CFO may miss each frame's known offset by: 0.5 %
+#: of mode I's carrier spacing (the plain estimator missed by 0.53 Hz at
+#: most over 24 such frames in float32 on a CPU; a wrong window or sign
+#: misses by hundreds of Hz)
+DEMOD_OFFSET_HZ = 5.0
+
+
+def _demod_bytes(p, F: int) -> dict:
+    """Each demod kernel's input read once and output written once (u8
+    rows, 4-byte CFOs): the guards and their copies; the useful samples
+    in and the complex64 windows out; the K active carriers of each
+    spectrum in and the float32 soft bits out (the carrier table too)."""
+    return {"guard_corr": F * (p.L - 1) * p.T_g * 2 * 2 + F * 4 * 3,
+            "mix_windows": F * p.L * p.T_u * (2 + 8) + F * 4,
+            "dqpsk_soft": (F * p.L * p.K * 8 + F * (p.L - 1) * 2 * p.K * 4
+                           + p.K * 4 + F * 4)}
+
+
+def _demod_rows(golden, F: int):
+    """(u8 rows [F, need, 2], offsets [F] float64 Hz): phase 4's golden
+    IQ (mode I), frame f its frame f mod 96 shifted by a known fine CFO,
+    quantised as ``testing.LoopSource`` quantises (round(90 x + 128),
+    clipped), on the card."""
+    import math
+    import torch
+    p, base = golden["p"], torch.view_as_complex(golden["rows"])
+    dev = base.device
+    off = (torch.linspace(-DEMOD_OFFSET, DEMOD_OFFSET, F, dtype=torch.float64,
+                          device=dev) * p.carrier_diff)
+    n = torch.arange(base.shape[1], dtype=torch.float64, device=dev)
+    x = (base[torch.arange(F, device=dev) % base.shape[0]].to(
+        torch.complex128) * torch.exp(2j * math.pi * off[:, None] * n / FS))
+    u8 = torch.round(torch.view_as_real(x) * 90.0 + 128.0).clamp_(0, 255)
+    return u8.to(torch.uint8), off
+
+
+def _fine_f64(x, p):
+    """[F] float64 Hz: the guard-interval correlation of complex rows
+    summed in complex128, the fine CFO's reference."""
+    import math
+    import torch
+    T_s, T_u, T_g, L = p.T_s, p.T_u, p.T_g, p.L
+    x = x.to(torch.complex128)
+    g = x[:, T_s - T_g: L * T_s - T_g].unfold(-1, T_g, T_s)
+    ref = x[:, T_s - T_g + T_u: L * T_s - T_g + T_u].unfold(-1, T_g, T_s)
+    corr = torch.sum(g * torch.conj(ref), dim=(-2, -1))
+    return -torch.angle(corr) / math.pi * (p.carrier_diff / 2.0)
+
+
+def _max_err(a, b) -> float:
+    import torch
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return float((a.double() - b.double()).abs().max())
+
+
+def phase_demod(dev, report, golden):
+    """Phase 12: the demod kernels at the core cell's shape, on u8 rows of
+    a real signal with known fine CFOs.  Soft bits, CIF block, windows
+    and PRS spectrum equal the plain chain's bit for bit given the same
+    CFO; the fine CFO is no further from a float64 sum than the plain
+    float32 sum's but 4 ulp, and within ``DEMOD_OFFSET_HZ`` of each
+    frame's offset; the total CFO is fine + coarse bit for bit.  Each
+    kernel's device time beside its bytes' bound and beside its own plain
+    counterpart on the same inputs; the FFT between them, the whole
+    ``demodulate_rows`` and the whole plain chain; the launches a call."""
+    import numpy as np
+    import torch
+    from dabjax_torch.msc.cif import cifs_from_soft
+    from dabjax_torch.ofdm import demod, demod_cuda
+
+    p, F = golden["p"], DEMOD_FRAMES
+    _check(p.mode == DEMOD_MODE, f"phase 4 rendered mode {p.mode}")
+    rows, off = _demod_rows(golden, F)
+    coarse = torch.full((F,), -3.0 * p.carrier_diff, device=dev)
+    demod_cuda.reset_launches()
+    d = demod.demodulate_rows(rows, coarse, p, "u8")
+    torch.cuda.synchronize()
+    per_call = (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
+                demod_cuda.SOFT_LAUNCHES)
+    _check(per_call == (1, 1, 1), f"demod launches a call {per_call}")
+
+    def bits(t):
+        return (torch.view_as_real(t) if t.is_complex() else t).view(
+            torch.int32)
+
+    # the plain chain's steps on the same inputs, given the kernels' CFO
+    x = demod.complex_rows(rows, "u8")
+    mixed = demod_cuda.mix_windows(rows, d.cfo, p, "u8", demod.FS)
+    mixed_plain = demod.mix_windows_torch(x, d.cfo, p)
+    spec = torch.fft.fft(mixed, dim=-1)
+    soft = demod.dqpsk_soft_torch(spec, d.cfo, p)
+    _check(torch.equal(bits(mixed), bits(mixed_plain)),
+           "mix_windows differs from the plain ramp bit for bit")
+    _check(torch.equal(bits(d.cifs), bits(cifs_from_soft(soft, p)))
+           and torch.equal(bits(d.fic), bits(soft[:, : p.fic_symbols]))
+           and torch.equal(bits(d.spec0), bits(spec[:, 0])),
+           "dqpsk_soft differs from the plain chain given the same CFO")
+    _check(torch.equal(bits(d.cfo), bits(d.fine + coarse)),
+           "guard_corr's total CFO is not fine + coarse bit for bit")
+    want = _fine_f64(x, p)
+    plain = demod.fine_cfo_estimate_torch(x, p)
+    err = {"guard_corr": _max_err(d.fine, want),
+           "mix_windows": _max_err(mixed, mixed_plain),
+           "dqpsk_soft": max(_max_err(d.cifs, cifs_from_soft(soft, p)),
+                             _max_err(d.fic, soft[:, : p.fic_symbols]))}
+    plain_err = _max_err(plain, want)
+    ulp4 = 4 * float(np.spacing(np.float32(float(want.abs().max()))))
+    _check(err["guard_corr"] <= plain_err + ulp4,
+           f"guard_corr's fine CFO is {err['guard_corr']} Hz from the "
+           f"float64 sum, the plain sum's {plain_err} + 4 ulp ({ulp4})")
+    off_err = _max_err(d.fine, off)
+    _check(off_err <= DEMOD_OFFSET_HZ,
+           f"guard_corr misses the known offsets by {off_err} Hz, above "
+           f"{DEMOD_OFFSET_HZ}")
+    del mixed_plain, soft, want
+
+    calls = {
+        "guard_corr": lambda: demod_cuda.guard_corr(rows, p, "u8", coarse),
+        "mix_windows": lambda: demod_cuda.mix_windows(rows, d.cfo, p, "u8",
+                                                      demod.FS),
+        "fft": lambda: torch.fft.fft(mixed, dim=-1),
+        "dqpsk_soft": lambda: demod_cuda.dqpsk_soft(
+            spec, d.cfo, p, demod.FS, d.fic, d.cifs.view(F, -1, 2 * p.K)),
+        "demodulate_rows": lambda: demod.demodulate_rows(rows, coarse, p,
+                                                         "u8"),
+    }
+    # each kernel's plain counterpart takes the rows as complex64, made
+    # once by ``u8_convert``, which both kernels that read rows fold in
+    plain_calls = {
+        "guard_corr": lambda: demod.fine_cfo_estimate_torch(x, p) + coarse,
+        "mix_windows": lambda: demod.mix_windows_torch(x, d.cfo, p),
+        "dqpsk_soft": lambda: cifs_from_soft(
+            demod.dqpsk_soft_torch(spec, d.cfo, p), p),
+        "u8_convert": lambda: demod.complex_rows(rows, "u8"),
+    }
+    times = {name: _median_runs(fn, reps=10) for name, fn in calls.items()}
+    plain_t = {name: _median_runs(fn, reps=5)
+               for name, fn in plain_calls.items()}
+    chain = _median_runs(lambda: demod.demodulate_rows_torch(
+        rows, coarse, p, "u8"), reps=5)
+    nbytes = _demod_bytes(p, F)
+    out = {"frames": F, "mode": p.mode, "launches_a_call": dict(zip(
+        ("guard_corr", "mix_windows", "dqpsk_soft"), per_call)),
+           "ms": {k: v["median"] for k, v in times.items()},
+           "runs_ms": {k: v["runs_ms"] for k, v in times.items()},
+           "plain_ms": {k: v["median"] for k, v in plain_t.items()},
+           "plain_runs_ms": {k: v["runs_ms"] for k, v in plain_t.items()},
+           "chain_ms": chain["median"], "chain_runs_ms": chain["runs_ms"],
+           "max_abs_err": err, "plain_fine_err_hz": plain_err,
+           "offset_err_hz": off_err, "bytes": nbytes,
+           "bound": {k: _bound(n, 0, "lane_op") for k, n in nbytes.items()}}
+    for k in nbytes:
+        out["bound"][k]["x_bound"] = (out["ms"][k]
+                                      / out["bound"][k]["bound_ms"])
+    print(f"demod: {F} frames of mode {p.mode}, u8 rows of a real signal: "
+          "kernels equal the plain chain bit for bit given the same CFO; "
+          f"fine CFO {err['guard_corr']:.3e} Hz from float64 (plain "
+          f"{plain_err:.3e}), {off_err:.4f} Hz from the known offsets; "
+          "device ms " + ", ".join(
+              f"{k} {v:.4f}" for k, v in out["ms"].items())
+          + "; plain ms " + ", ".join(
+              f"{k} {v:.4f}" for k, v in out["plain_ms"].items())
+          + f"; plain chain {chain['median']:.4f}; x bound " + ", ".join(
+              f"{k} {v['x_bound']:.2f}" for k, v in out["bound"].items()))
+    report["demod"] = out
+
+
 #: the card's data-sheet rates (NVIDIA H100 SXM, dense, at 700 W): device
 #: memory; FP32 outside the tensor cores, an FMA counted as 2; one op a
 #: lane and clock (half the FP32 rate: 128 lanes x 132 SMs x 1.98 GHz, the
@@ -1996,6 +2181,22 @@ def _kernel_lines(report, launches):
     n_batch = 32 * 4480
     bm = chained["per_shape"]["bm [256,8]"]
     f32, bf16 = batched["float32"], batched["bfloat16"]
+    dm, demod_src = report["demod"], "dabjax_torch/csrc/demod.cu"
+    demod_lines = [
+        # no TPU kernel: dabjax's demod is a jnp chain XLA fuses; the
+        # plain time is the kernel's own step of the plain chain, on
+        # complex64 rows (u8_convert_ms apart), the error guard_corr's Hz
+        # from a float64 sum and the others' from the plain chain
+        line(k, demod_src, "none (dabjax/ofdm/demod.py, a jnp chain)",
+             launches[k], dm["max_abs_err"][k], dm["ms"][k],
+             dm["plain_ms"][k], None, dm["bound"][k],
+             runs_ms=dm["runs_ms"][k], plain_runs_ms=dm["plain_runs_ms"][k],
+             launches_a_call=dm["launches_a_call"][k],
+             frames=dm["frames"], fft_ms=dm["ms"]["fft"],
+             demodulate_rows_ms=dm["ms"]["demodulate_rows"],
+             chain_ms=dm["chain_ms"],
+             u8_convert_ms=dm["plain_ms"]["u8_convert"])
+        for k in ("guard_corr", "mix_windows", "dqpsk_soft")]
     return [
         line("viterbi_forward_acs", src, "dabjax/fec/viterbi_pallas.py:85",
              launches["k1"], err["k1"], msc["k1"][1], msc["k1"][2], None,
@@ -2127,6 +2328,7 @@ def _kernel_lines(report, launches):
              bm["library_ms"], _bound(0, 256 * 8 * 4480 * 2, "fp32_flop"),
              unit="per dot", runs_ms=bm["runs_ms"], clocks=chained["clocks"],
              per_shape=chained["per_shape"]),
+        *demod_lines,
     ]
 
 
@@ -2151,6 +2353,7 @@ def main() -> int:
 
     from dabjax_torch import _build
     from dabjax_torch.fec import viterbi_cuda as vc
+    from dabjax_torch.ofdm import demod_cuda
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
@@ -2169,10 +2372,14 @@ def main() -> int:
     timed(phase_kernels)
     timed(phase_words)
     vc.reset_launches()
+    demod_cuda.reset_launches()
     golden = timed(phase_pipeline)
     loop_iq = timed(phase_receiver)
     torch.cuda.synchronize()
-    launches = {"k1": vc.FORWARD_LAUNCHES, "k2": vc.TRACEBACK_LAUNCHES}
+    launches = {"k1": vc.FORWARD_LAUNCHES, "k2": vc.TRACEBACK_LAUNCHES,
+                "guard_corr": demod_cuda.GUARD_LAUNCHES,
+                "mix_windows": demod_cuda.MIX_LAUNCHES,
+                "dqpsk_soft": demod_cuda.SOFT_LAUNCHES}
     _check(all(n > 0 for n in launches.values()),
            f"main path did not launch every kernel: {launches}")
     vc.reset_launches()
@@ -2195,6 +2402,7 @@ def main() -> int:
     _check(all(n > 0 for n in mesh_launches.values()),
            f"the mesh path did not launch every kernel: {mesh_launches}")
     print(f"launches on the mesh path: {mesh_launches}")
+    timed(phase_demod, golden)
 
     kernels = _kernel_lines(report, launches)
     for line, k in zip(kernels, ("k1", "k2", "k3", "k4")):
@@ -2210,7 +2418,7 @@ def main() -> int:
                       "formats": report["formats"],
                       "stages": report["stages"],
                       "bank": report["bank"], "trace": report["trace"],
-                      "mesh": report["mesh"]}))
+                      "mesh": report["mesh"], "demod": report["demod"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

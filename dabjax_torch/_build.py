@@ -137,4 +137,14 @@ def load_library() -> ctypes.CDLL:
     lib.dabjax_probe_dot_batched.restype = i
     lib.dabjax_probe_dots.argtypes = [vp, vp, vp, i, i, i, i, vp]
     lib.dabjax_probe_dots.restype = i
+    f = ctypes.c_float
+    lib.dabjax_demod_guard_corr.argtypes = [vp, i, ll, i, i, i, i, i, f, vp,
+                                            vp, vp, vp]
+    lib.dabjax_demod_guard_corr.restype = i
+    lib.dabjax_demod_mix_windows.argtypes = [vp, i, ll, i, i, i, i, f, vp,
+                                             vp, vp]
+    lib.dabjax_demod_mix_windows.restype = i
+    lib.dabjax_demod_dqpsk_soft.argtypes = [vp, vp, i, i, i, i, i, i, f, vp,
+                                            vp, ll, vp, ll, vp]
+    lib.dabjax_demod_dqpsk_soft.restype = i
     return lib

@@ -54,7 +54,7 @@ def sharded_ensemble_step(mesh: Mesh, p: DabParams, proto: SubchGeometry):
     def cifs_of(rows: torch.Tensor):
         """Demod + FIC of one time row's frames: (int8 CIFs, FIBs passing
         CRC, FIBs)."""
-        x = torch.view_as_complex(rows.to(torch.float32).contiguous())
+        x = demod.complex_rows(rows, "f32")
         fine = demod.fine_cfo_estimate(x, p)
         soft, _ = demod.demodulate_frames_cfo(x, fine, p)
         _, ok = decode_fic(soft[:, : p.fic_symbols, :], p)

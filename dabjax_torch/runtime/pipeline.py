@@ -2,7 +2,7 @@
 :mod:`dabjax.runtime.pipeline`).
 
 Rows are ``[F, need, 2]`` float32 (re, im) pairs, each starting at the PRS
-useful part, as in dabjax; ``torch.view_as_complex`` makes them complex64
+useful part, as in dabjax; ``demod.complex_rows`` views them as complex64
 without a copy.
 """
 
@@ -27,10 +27,6 @@ __all__ = ["FramePipeline", "FullEnsemblePipeline", "frame_pipeline",
            "full_ensemble_pipeline", "pipeline_stages", "example_rows"]
 
 
-def _complex_rows(rows: torch.Tensor) -> torch.Tensor:
-    return torch.view_as_complex(rows.to(torch.float32).contiguous())
-
-
 def _on(rows: torch.Tensor, device: torch.device) -> torch.Tensor:
     """The pipeline never moves data between devices behind the caller."""
     if rows.device.type != device.type or (
@@ -50,7 +46,7 @@ class FramePipeline(nn.Module):
     @torch.no_grad()   # inference only: a quarter less host time a batch
     def forward(self, rows: torch.Tensor):
         p = self.p
-        x = _complex_rows(_on(rows, self.device))
+        x = demod.complex_rows(_on(rows, self.device), "f32")
         fine = demod.fine_cfo_estimate(x, p)
         soft, spec0 = demod.demodulate_frames_cfo(x, fine, p)
         snr = demod.snr_estimate(spec0, p)
@@ -80,7 +76,7 @@ class FullEnsemblePipeline(nn.Module):
     @torch.no_grad()   # inference only: a quarter less host time a batch
     def forward(self, rows: torch.Tensor):
         p = self.p
-        x = _complex_rows(_on(rows, self.device))
+        x = demod.complex_rows(_on(rows, self.device), "f32")
         fine = demod.fine_cfo_estimate(x, p)
         soft, _ = demod.demodulate_frames_cfo(x, fine, p)
         _, ok = decode_fic(soft[:, : p.fic_symbols, :], p)
@@ -132,7 +128,7 @@ def pipeline_stages(p: DabParams, geoms: Sequence[SubchGeometry], *,
     dev = full_pipe.device
 
     def _front(rows):
-        x = _complex_rows(_on(rows, dev))
+        x = demod.complex_rows(_on(rows, dev), "f32")
         fine = demod.fine_cfo_estimate(x, p)
         return demod.demodulate_frames_cfo(x, fine, p)[0]
 

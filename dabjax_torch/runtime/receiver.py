@@ -45,7 +45,6 @@ from dabjax_torch.runtime.metrics import Metrics
 from dabjax_torch.runtime.profiling import StageProfiler
 from dabjax_torch.fic.fic_decoder import (decode_fic, fic_codewords_per_frame,
                                           fic_profile)
-from dabjax_torch.msc.cif import cifs_from_soft
 from dabjax_torch.msc.deinterleave import HISTORY
 from dabjax_torch.msc.subchannel import (EnsembleDecoder, SubchGeometry,
                                          pack_bits_u8, subch_puncture_mask)
@@ -203,28 +202,19 @@ class BlockFn(nn.Module):
         """The per-frame outputs of one shard of frames, on its device:
         each tensor's first axis is the shard's frames."""
         p = self.p
-        if self.kind == "u8":
-            x = (rows.to(torch.float32) - 128.0) * (1.0 / 128.0)
-        else:
-            x = rows.to(torch.float32)
-        x = torch.view_as_complex(x.contiguous())
-        # the coarse CFO is a whole number of carrier spacings, a multiple
-        # of 2*pi in the guard-correlation angle, so the fine estimate on
-        # the unrotated rows is unaffected and one rotation serves both
-        fine = demod.fine_cfo_estimate(x, p)
-        cfo = fine + coarse_hz
-        soft, spec0 = demod.demodulate_frames_cfo(x, cfo, p)
-        prs_rows = demod.apply_cfo(x[:, : p.T_u], cfo)
-        fibs, fic_ok = decode_fic(soft[:, : p.fic_symbols, :], p)
+        d = demod.demodulate_rows(rows, coarse_hz, p, self.kind)
+        prs_rows = demod.apply_cfo(
+            demod.complex_rows(rows[:, : p.T_u], self.kind), d.cfo)
+        fibs, fic_ok = decode_fic(d.fic, p)
         t_off, t_ok = acquisition.prs_sync(prs_rows, p)
-        return {"snr": demod.snr_estimate(spec0, p), "fine": fine,
-                "coarse": demod.coarse_cfo_estimate(spec0, p),
+        return {"snr": demod.snr_estimate(d.spec0, p), "fine": d.fine,
+                "coarse": demod.coarse_cfo_estimate(d.spec0, p),
                 "t_off": t_off, "t_ok": t_ok, "fic_ok": fic_ok,
-                "spectrum": torch.abs(torch.roll(spec0, p.T_u // 2,
+                "spectrum": torch.abs(torch.roll(d.spec0, p.T_u // 2,
                                                  dims=-1)),
-                "constel": soft[:1, p.fic_symbols, :],  # first data symbol
+                "constel": d.cifs[:1, : 2 * p.K],  # first data symbol
                 "fib_bytes": pack_bits_u8(fibs[..., :240]),  # [F, n_fib, 30]
-                "cifs": cifs_from_soft(soft, p)}
+                "cifs": d.cifs}
 
     @torch.no_grad()
     def assemble(self, shards: List[Dict], device: torch.device):

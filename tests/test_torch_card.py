@@ -474,3 +474,193 @@ def test_receiver_k1_launches_lie_in_their_spans_on_card(tmp_path):
     assert launched > 0 and len(k1) == launched
     inside(k1, launches(("cuda_runtime",)))
     inside(kernels, launches(("cuda_runtime", "cuda_driver")))
+
+
+def _demod_rows(p, F, kind, seed, zero=False):
+    """Frame rows of ``kind`` [F, need + 8 (, 2)] on the card: uniform
+    bytes, or standard-normal floats scaled to the u8 range; all-zero
+    signal (bytes 128) where ``zero``."""
+    from dabjax_torch.ofdm.demod import min_frame_samples
+    dev = _card()
+    rng = np.random.default_rng(seed)
+    shape = (F, min_frame_samples(p) + 8, 2)
+    if kind == "u8":
+        a = (np.full(shape, 128, np.uint8) if zero
+             else rng.integers(0, 256, shape, dtype=np.uint8))
+        return torch.from_numpy(a).to(dev)
+    a = (np.zeros(shape, np.float32) if zero
+         else (rng.standard_normal(shape) * 0.3).astype(np.float32))
+    t = torch.from_numpy(a).to(dev)
+    return torch.view_as_complex(t) if kind == "c64" else t
+
+
+def _bits(t):
+    """A float or complex tensor's bits, to compare bit for bit."""
+    return torch.view_as_real(t).view(torch.int32) if t.is_complex() \
+        else t.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfo", ["zero", "nonzero"])
+@pytest.mark.parametrize("kind", ["u8", "f32", "c64"])
+@pytest.mark.parametrize("F", [1, 4, 360])
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_demod_kernels_bit_exact_on_card(mode, F, kind, cfo):
+    """guard_corr + mix_windows + FFT + dqpsk_soft against the plain
+    chain given the same CFO: the FIC soft bits, the CIF block and the
+    PRS spectrum of ``demodulate_rows``, and the [F, L-1, 2K] soft bits
+    and spectrum of ``demodulate_frames_cfo``, bit for bit; the total
+    CFO is the fine CFO plus the coarse, as one float32 add."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.msc.cif import cifs_from_soft
+    from dabjax_torch.ofdm import demod
+
+    p = get_mode(mode)
+    rows = _demod_rows(p, F, kind, seed=mode * 1000 + F)
+    coarse = torch.full((F,), 0.0 if cfo == "zero" else
+                        -3.0 * p.carrier_diff, device=rows.device)
+    d = demod.demodulate_rows(rows, coarse, p, kind)
+    x = demod.complex_rows(rows, kind)
+    soft, spec0 = demod.demodulate_frames_cfo_torch(x, d.cfo, p)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(d.cfo), _bits(d.fine + coarse))
+    assert torch.equal(_bits(d.fic), _bits(soft[:, : p.fic_symbols]))
+    assert torch.equal(_bits(d.cifs), _bits(cifs_from_soft(soft, p)))
+    assert torch.equal(_bits(d.spec0), _bits(spec0))
+    assert bool(torch.isfinite(d.cifs).all()) and bool(d.cifs.abs().max()
+                                                        <= 127)
+
+    ramp = (torch.zeros(F, device=rows.device) if cfo == "zero"
+            else d.cfo + 170.25)
+    got = demod.demodulate_frames_cfo(x, ramp, p)
+    want = demod.demodulate_frames_cfo_torch(x, ramp, p)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8", "f32", "c64"])
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_guard_corr_repeats_and_is_accurate_on_card(mode, kind):
+    """guard_corr's fine CFO (360 frames) is the same in every run (a
+    fixed order of sums, no atomics), and no further from a float64
+    computation than the plain float32 sum's, but by ``tol``: both paths
+    end in float32 (an atan2f and the Hz scaling, rounded in other
+    orders), which is a few ulp of the Hz value, while the plain sum's
+    error is the larger part (37800 terms in float32 in mode I)."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.ofdm import demod, demod_cuda
+
+    p = get_mode(mode)
+    rows = _demod_rows(p, 360, kind, seed=mode)
+    runs = [demod_cuda.guard_corr(rows, p, kind)[0] for _ in range(3)]
+    x = demod.complex_rows(rows, kind)
+    plain = demod.fine_cfo_estimate_torch(x, p).cpu().numpy()
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(_bits(r), _bits(runs[0]))
+    xs = x.cpu().numpy().astype(np.complex128)
+    g = np.stack([xs[:, l * p.T_s - p.T_g: l * p.T_s]
+                  for l in range(1, p.L)], axis=1)
+    ref = np.stack([xs[:, l * p.T_s - p.T_g + p.T_u: l * p.T_s + p.T_u]
+                    for l in range(1, p.L)], axis=1)
+    corr = np.sum(g * np.conj(ref), axis=(1, 2))
+    want = -np.angle(corr) / np.pi * (p.carrier_diff / 2.0)
+    got = runs[0].cpu().numpy().astype(np.float64)
+    tol = 4 * float(np.spacing(np.float32(np.max(np.abs(want)))))
+    assert np.max(np.abs(got - want)) <= np.max(np.abs(plain - want)) + tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8", "f32", "c64"])
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_demod_kernels_zero_rows_on_card(mode, kind):
+    """All-zero signal: soft bits 0 and no NaN (the subnormal 1e-38 is
+    not flushed), as the plain chain gives them."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.ofdm import demod
+
+    p = get_mode(mode)
+    rows = _demod_rows(p, 4, kind, seed=0, zero=True)
+    coarse = torch.zeros(4, device=rows.device)
+    d = demod.demodulate_rows(rows, coarse, p, kind)
+    want = demod.demodulate_rows_torch(rows, coarse, p, kind)
+    torch.cuda.synchronize()
+    for t in (d.fic, d.cifs, d.spec0):
+        assert not bool(t.isnan().any()) and not bool(t.any())
+    assert torch.equal(d.cifs, want.cifs) and torch.equal(d.fic, want.fic)
+
+
+@pytest.mark.cuda
+def test_demod_counters_show_the_kernels_on_card():
+    """The block graph and the pipeline's demod go through the three
+    kernels: one launch of each a call."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.ofdm import demod_cuda
+    from dabjax_torch.runtime.pipeline import frame_pipeline
+    from dabjax_torch.runtime.receiver import BlockFn
+
+    p = get_mode(1)
+    for kind in ("u8", "f32"):
+        rows = _demod_rows(p, 4, kind, seed=7)
+        demod_cuda.reset_launches()
+        BlockFn(p, kind, device=rows.device).frames(
+            rows, torch.zeros(4, device=rows.device))
+        assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
+                demod_cuda.SOFT_LAUNCHES) == (1, 1, 1)
+    demod_cuda.reset_launches()
+    frame_pipeline(p, device=rows.device)(rows)
+    assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
+            demod_cuda.SOFT_LAUNCHES) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+def test_demod_kernels_refuse_bad_input_on_card():
+    """A CUDA input of a wrong dtype, shape or layout raises, before any
+    launch; so do a CPU tensor and a CFO of the wrong kind."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.ofdm import demod, demod_cuda
+
+    p = get_mode(1)
+    rows = _demod_rows(p, 4, "f32", seed=3)
+    zero = torch.zeros(4, device=rows.device)
+    bad_rows = {
+        "dtype": rows.double(),
+        "short": rows[:, : demod.min_frame_samples(p) - 1],
+        "pairs": torch.cat([rows, rows[..., :1]], dim=-1),
+        "layout": rows.transpose(1, 2).contiguous().transpose(1, 2),
+        "u8 as f32": rows.to(torch.uint8),
+    }
+    demod_cuda.reset_launches()
+    for name, bad in bad_rows.items():
+        with pytest.raises(ValueError):
+            demod.demodulate_rows(bad, zero, p, "f32")
+        with pytest.raises(ValueError):
+            demod_cuda.guard_corr(bad, p, "f32")
+    with pytest.raises(ValueError):
+        demod_cuda.guard_corr(rows.cpu(), p, "f32")
+    for cfo in (zero.double(), zero[:3], zero.cpu()):
+        with pytest.raises(ValueError):
+            demod_cuda.guard_corr(rows, p, "f32", cfo)
+        with pytest.raises(ValueError):
+            demod_cuda.mix_windows(rows, cfo, p, "f32", demod.FS)
+    with pytest.raises(ValueError):
+        demod_cuda.mix_windows(rows[:, :, :1].squeeze(-1), zero, p, "c64",
+                               demod.FS)
+    spec = torch.zeros((4, p.L, p.T_u), dtype=torch.complex64,
+                       device=rows.device)
+    n, fic = 2 * p.K, p.fic_symbols
+    outs = torch.empty((4, p.L - 1, n), device=rows.device)
+    good = (outs[:, :fic], outs[:, fic:])
+    for bad_spec, bad_fic, bad_msc in (
+            (spec[:, :, :-1], *good), (spec.to(torch.complex128), *good),
+            (spec, good[0].double(), good[1]),
+            (spec, good[0], outs[:, fic - 1:]),
+            (spec, good[0], torch.empty((4, n, p.L - 1 - fic),
+                                        device=rows.device).transpose(1, 2))):
+        with pytest.raises(ValueError):
+            demod_cuda.dqpsk_soft(bad_spec, zero, p, demod.FS, bad_fic,
+                                  bad_msc)
+    assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
+            demod_cuda.SOFT_LAUNCHES) == (0, 0, 0)
