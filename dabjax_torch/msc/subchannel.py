@@ -19,6 +19,7 @@ from torch import nn
 from dabjax_torch.constants import CU_BITS, DabParams
 from dabjax_torch.devices import on_device, resolve
 from dabjax_torch.fec import prbs, puncture, viterbi, viterbi_cuda
+from dabjax_torch.graphs import BlockGraph, layout
 from dabjax_torch.msc.deinterleave import HISTORY, time_deinterleave
 
 __all__ = ["SubchGeometry", "subch_profile", "subch_puncture_mask",
@@ -120,7 +121,11 @@ class EnsembleDecoder(nn.Module):
     multiple of the mesh size by repeating subchannel 0 and split over
     the mesh positions in mesh order; each part decodes on its own
     device and the results come home in order.  The per-subchannel math
-    is unchanged, so the bits equal the single-device path's."""
+    is unchanged, so the bits equal the single-device path's.
+
+    On one CUDA device (no mesh), :meth:`fused` is a CUDA graph of this
+    object's own (:class:`dabjax_torch.graphs.BlockGraph`), keyed by the
+    soft format and the layouts of its inputs."""
 
     def __init__(self, geometries: Sequence[SubchGeometry], p: DabParams,
                  mesh=None, *, device):
@@ -139,6 +144,8 @@ class EnsembleDecoder(nn.Module):
         self.register_buffer(
             "starts", torch.tensor(starts, dtype=torch.int64,
                                    device=device), persistent=False)
+        self._graph = BlockGraph()
+        self._hist = None     # the graph's CIF history, carried in place
 
     def _slices(self, soft: torch.Tensor, off: int,
                 geoms: List[SubchGeometry]) -> torch.Tensor:
@@ -192,7 +199,44 @@ class EnsembleDecoder(nn.Module):
         ``(merged_u8, new_hist, bucket_meta)`` with bucket_meta listing
         (geoms, output_shape) in merge order for the host-side split;
         on a mesh the shapes count the pad rows, which the split trims by
-        enumerating the geometries."""
+        enumerating the geometries.
+
+        On one CUDA device the chain replays as this object's CUDA graph
+        from its second call at a key on: ``merged_u8`` is the graph's
+        buffer and ``new_hist`` the decoder's own history buffer, which
+        the graph updates in place; both are valid until this object's
+        next call.  Passing ``new_hist`` back costs nothing; another
+        history is copied into the buffer first."""
+        if self.mesh is not None or not self._graph.backend(cifs.device):
+            return self._fused(hist, cifs, blob)
+        key = (viterbi_cuda.soft_format(), tuple(hist.shape), hist.dtype,
+               layout(cifs), layout(blob))
+        if not self._graph.step(key, (cifs, blob)):
+            return self._graph.eager(
+                functools.partial(self._fused, hist, cifs, blob),
+                cifs.device)
+        if self._hist is None or (self._hist.shape, self._hist.dtype,
+                                  self._hist.device) != (
+                                      hist.shape, hist.dtype, hist.device):
+            self._hist = torch.empty(hist.shape, dtype=hist.dtype,
+                                     device=hist.device)
+        if hist.data_ptr() != self._hist.data_ptr():
+            self._hist.copy_(hist)
+        merged, meta = self._graph.replay(
+            functools.partial(self._fused_in_place, cifs, blob),
+            cifs.device)
+        return merged, self._hist, meta
+
+    def _fused_in_place(self, cifs: torch.Tensor, blob: torch.Tensor):
+        """:meth:`_fused` on the decoder's history buffer, which it then
+        overwrites with the new history: ``(merged_u8, bucket_meta)``."""
+        merged, hist, meta = self._fused(self._hist, cifs, blob)
+        self._hist.copy_(hist)
+        return merged, meta
+
+    def _fused(self, hist: torch.Tensor, cifs: torch.Tensor,
+               blob: torch.Tensor) -> Tuple:
+        """:meth:`fused`'s chain, issued op by op."""
         block = torch.cat([hist, cifs], dim=0)
         soft = msc_soft(block)           # the history itself stays float
         parts = [blob]

@@ -24,6 +24,7 @@ once locked (``msc`` only when audio or data is decoded).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Dict, List, Optional, Tuple
 
@@ -38,7 +39,9 @@ from dabjax_torch.constants import CIF_BITS, DabParams, get_mode
 from dabjax_torch.data.pad import PadHandler
 from dabjax_torch.data.packet import PacketService
 from dabjax_torch.devices import on_device, resolve
+from dabjax_torch.fec import viterbi_cuda
 from dabjax_torch.fic.fib import EnsembleDB
+from dabjax_torch.graphs import BlockGraph, layout
 from dabjax_torch.runtime.audio_pool import COUNTER_FIELDS
 from dabjax_torch.runtime.config import ReceiverConfig
 from dabjax_torch.runtime.metrics import Metrics
@@ -187,7 +190,14 @@ class BlockFn(nn.Module):
     The work splits into :meth:`frames`, which is per frame and runs on
     the rows' device, and :meth:`assemble`, which joins any number of
     contiguous frame shards into the one block's ``(cifs, blob)`` on a
-    given device; ``forward`` is the two over one shard."""
+    given device; ``forward`` is the two over one shard.
+
+    On a CUDA device, :meth:`frames` followed by :meth:`assemble` of its
+    one shard on the rows' device is this object's CUDA graph
+    (:class:`dabjax_torch.graphs.BlockGraph`), keyed by the soft format
+    and the layouts of the rows and the coarse CFO: from the second call
+    at a key on, :meth:`frames` replays it and :meth:`assemble` hands back
+    its buffers, valid until this object's next :meth:`frames`."""
 
     def __init__(self, p: DabParams, kind: str, *, device):
         super().__init__()
@@ -196,11 +206,49 @@ class BlockFn(nn.Module):
         self.p = p
         self.kind = kind
         self.device = torch.device(device)
+        self._graph = BlockGraph()
+        self._shard = None        # the shard dict frames() last handed out
+        self._joined = None       # its (cifs, blob, device)
 
     @torch.no_grad()   # inference only: a quarter less host time a batch
     def frames(self, rows: torch.Tensor, coarse_hz: torch.Tensor) -> Dict:
         """The per-frame outputs of one shard of frames, on its device:
         each tensor's first axis is the shard's frames."""
+        if not self._graph.backend(rows.device):
+            return self._frames(rows, coarse_hz)
+        key = (viterbi_cuda.soft_format(), layout(rows), layout(coarse_hz))
+        work = functools.partial(self._frames_joined, rows, coarse_hz)
+        if self._graph.step(key, (rows, coarse_hz)):
+            shard, cifs, blob = self._graph.replay(work, rows.device)
+        else:
+            shard, cifs, blob = self._graph.eager(work, rows.device)
+        self._shard = dict(shard)
+        self._joined = (cifs, blob, rows.device)
+        return self._shard
+
+    @torch.no_grad()
+    def assemble(self, shards: List[Dict], device: torch.device):
+        """``(cifs, blob)`` of the block whose frames are the shards' in
+        order, on ``device``: each tap over all frames (the spectrum is
+        their mean, the constellation frame 0's), then the FIB bytes; the
+        CIFs in frame order."""
+        if len(shards) == 1 and shards[0] is self._shard \
+                and resolve(device) == self._joined[2]:
+            return self._joined[:2]
+        return self._assemble(shards, device)
+
+    def forward(self, rows: torch.Tensor, coarse_hz: torch.Tensor):
+        return self.assemble([self.frames(rows, coarse_hz)], rows.device)
+
+    def _frames_joined(self, rows: torch.Tensor, coarse_hz: torch.Tensor):
+        """``(shard, cifs, blob)``: :meth:`_frames` and :meth:`_assemble`
+        of that one shard on the rows' device."""
+        shard = self._frames(rows, coarse_hz)
+        return (shard, *self._assemble([shard], rows.device))
+
+    @torch.no_grad()
+    def _frames(self, rows: torch.Tensor, coarse_hz: torch.Tensor) -> Dict:
+        """:meth:`frames`, issued op by op."""
         p = self.p
         d = demod.demodulate_rows(rows, coarse_hz, p, self.kind)
         prs_rows = demod.apply_cfo(
@@ -217,11 +265,8 @@ class BlockFn(nn.Module):
                 "cifs": d.cifs}
 
     @torch.no_grad()
-    def assemble(self, shards: List[Dict], device: torch.device):
-        """``(cifs, blob)`` of the block whose frames are the shards' in
-        order, on ``device``: each tap over all frames (the spectrum is
-        their mean, the constellation frame 0's), then the FIB bytes; the
-        CIFs in frame order."""
+    def _assemble(self, shards: List[Dict], device: torch.device):
+        """:meth:`assemble`, issued op by op."""
         def cat(name):
             parts = [s[name].to(device) for s in shards]
             return parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -233,9 +278,6 @@ class BlockFn(nn.Module):
         blob = torch.cat([torch.cat(taps).view(torch.uint8),
                           cat("fib_bytes").reshape(-1)])
         return cat("cifs"), blob
-
-    def forward(self, rows: torch.Tensor, coarse_hz: torch.Tensor):
-        return self.assemble([self.frames(rows, coarse_hz)], rows.device)
 
 
 class Receiver:
@@ -300,6 +342,11 @@ class Receiver:
             from dabjax_torch.io.iq_dump import IqDumpWriter
             self._iq_dump = IqDumpWriter(self.cfg.dump_iq_path)
         self._block_fn = self._build_block_fn()
+        # the block's inputs, kept from block to block (_host_rows, _upload)
+        self._rows_host: Optional[torch.Tensor] = None
+        self._rows_dev: Optional[torch.Tensor] = None
+        self._coarse: Optional[torch.Tensor] = None
+        self._uploaded = None           # CUDA event after the rows' upload
 
     def _empty_buf(self) -> np.ndarray:
         """(Re)initialize the preallocated sample buffer; ``self._buf``
@@ -400,19 +447,61 @@ class Receiver:
         """The block graph over the host rows [F, need, 2]: on this
         device, or over the mesh in ``mesh.size`` contiguous frame shards,
         each on its position's device, joined on the home device."""
-        devices = [self.device] if self.mesh is None \
-            else self.mesh.positions()
         with self.profiler.stage("blockgraph",
                                  items=rows.shape[0] * self.p.T_F):
+            fn = self._block_fn
+            if self.mesh is None:
+                rows, coarse = self._upload(rows)
+                return fn.assemble([fn.frames(rows, coarse)], self.device)
             shards = []
-            for part, dev in zip(torch.tensor_split(rows, len(devices)),
-                                 devices):
+            for part, dev in zip(torch.tensor_split(rows, self.mesh.size),
+                                 self.mesh.positions()):
                 with on_device(dev):
                     coarse = torch.full((part.shape[0],), self._coarse_hz,
                                         dtype=torch.float32, device=dev)
-                    shards.append(self._block_fn.frames(part.to(dev),
-                                                        coarse))
-            return self._block_fn.assemble(shards, self.device)
+                    shards.append(fn._frames(part.to(dev), coarse))
+            return fn._assemble(shards, self.device)
+
+    def _upload(self, rows: torch.Tensor):
+        """The host rows and the coarse CFO as tensors on this device that
+        stay the same from block to block, so that the block graph finds
+        its inputs where it captured them: the rows copied by one
+        asynchronous copy (the CPU takes the host rows as they are), the
+        CFO filled in."""
+        F = rows.shape[0]
+        if self._coarse is None or self._coarse.shape[0] != F:
+            self._coarse = torch.empty(F, dtype=torch.float32,
+                                       device=self.device)
+        self._coarse.fill_(self._coarse_hz)
+        if rows.device == self._coarse.device:
+            return rows, self._coarse
+        dev = self._rows_dev
+        if dev is None or dev.shape != rows.shape or dev.dtype != rows.dtype:
+            dev = self._rows_dev = torch.empty(rows.shape, dtype=rows.dtype,
+                                               device=self.device)
+            self._uploaded = torch.cuda.Event()
+        dev.copy_(rows, non_blocking=True)
+        self._uploaded.record()
+        return dev, self._coarse
+
+    def _host_rows(self, base: np.ndarray, need: int) -> torch.Tensor:
+        """The block's frame rows [F, need, 2] (uint8 pairs, or complex64
+        as float32 pairs) stacked into a host buffer kept from block to
+        block, pinned for a CUDA device; the last upload from it is waited
+        for first."""
+        shape = (len(base), need, 2)
+        dtype = torch.uint8 if self._u8 else torch.float32
+        buf = self._rows_host
+        if buf is None or tuple(buf.shape) != shape or buf.dtype != dtype:
+            buf = self._rows_host = torch.empty(
+                shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+        elif self._uploaded is not None:
+            self._uploaded.synchronize()
+        out = buf.numpy()
+        if not self._u8:                 # complex64 -> (re, im) pairs
+            out = out.view(np.complex64)[..., 0]
+        np.stack([self._buf[b: b + need] for b in base], out=out)
+        return buf
 
     # --------------------------------------------------------------- I/O
 
@@ -489,7 +578,9 @@ class Receiver:
     def stage(self) -> Optional[_Blk]:
         """Host staging + the entire device work of one block, with no
         device synchronization.  Returns None when the source is
-        exhausted."""
+        exhausted.  On a CUDA device the block's ``merged`` blob is the
+        buffer of a CUDA graph (see :class:`BlockFn`), valid until the
+        next ``stage()``: consume a block before staging the next."""
         p = self.p
         F = self.cfg.frames_per_block
         if self._u0 is None and not self.acquire():
@@ -502,13 +593,11 @@ class Receiver:
             return None
         base = pos - self._buf_base
         with self.profiler.stage("stage_host", items=F * p.T_F):
-            rows = np.stack([self._buf[b: b + need] for b in base])
+            rows = self._host_rows(base, need)
             if self._iq_dump is not None:    # raw-IQ tap at pipeline input
                 self._iq_dump.write(self._cx(int(base[0]),
                                              int(base[0]) + F * p.T_F))
-            if not self._u8:                 # complex64 -> (re, im) pairs
-                rows = rows.view(np.float32).reshape(F, need, 2)
-            cifs, blob = self._block(torch.from_numpy(rows))
+            cifs, blob = self._block(rows)
 
         # ----- MSC buckets (skipped entirely in FIC-only use)
         bucket_meta: List[Tuple] = []

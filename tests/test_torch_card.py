@@ -664,3 +664,208 @@ def test_demod_kernels_refuse_bad_input_on_card():
                                   bad_msc)
     assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
             demod_cuda.SOFT_LAUNCHES) == (0, 0, 0)
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+def _bench_loop(name, seed=2024):
+    """A benchmark configuration's geometries and its loop's 30 frame
+    rows (u8) on the card."""
+    import json
+    import pathlib
+    from dabbench.common import geometries
+    from dabbench.gen.loop import PERIOD_FRAMES, make_loop
+    from dabjax_torch.ofdm.demod import min_frame_samples
+    path = pathlib.Path(__file__).resolve().parents[1] / "dabbench" \
+        / "configs" / f"{name}.json"
+    with open(path) as f:
+        cfg = json.load(f)
+    loop = make_loop(cfg, seed)
+    p = loop.p
+    base = np.arange(PERIOD_FRAMES) * p.T_F + p.T_null + p.T_g
+    idx = base[:, None] + np.arange(min_frame_samples(p))[None, :]
+    return cfg, loop, p, geometries(cfg), torch.as_tensor(loop.u8[idx])
+
+
+def _eager(monkeypatch):
+    """From here on every ``BlockGraph`` runs the eager code."""
+    from dabjax_torch import graphs
+    monkeypatch.setattr(graphs.BlockGraph, "backend",
+                        lambda self, device: None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dabplus12_eep3a", "mixed12_uep"])
+def test_graph_blocks_equal_eager_blocks_on_card(name):
+    """22 blocks of 12 frames (a new stretch of the loop each) through the
+    block graph and the MSC chain as the benchmark's core cell calls
+    them, the history carried: each block's merged bytes and history
+    equal those of the same objects' eager code, from the first block
+    (eager), the second (captured) and every replay; the launch counters
+    read the eager code's counts a block."""
+    from dabjax_torch.constants import CIF_BITS
+    from dabjax_torch.msc.deinterleave import HISTORY
+    from dabjax_torch.msc.subchannel import EnsembleDecoder
+    from dabjax_torch.ofdm import demod_cuda
+    from dabjax_torch.runtime.receiver import BlockFn
+    dev = _card()
+    _, _, p, geoms, frames = _bench_loop(name)
+    F, n = 12, 22
+    fn, dec = BlockFn(p, "u8", device=dev), EnsembleDecoder(geoms, p,
+                                                          device=dev)
+    ref_fn, ref_dec = BlockFn(p, "u8", device=dev), \
+        EnsembleDecoder(geoms, p, device=dev)
+    rows = torch.empty((F,) + frames.shape[1:], dtype=torch.uint8,
+                       device=dev)
+    coarse = torch.zeros(F, device=dev)
+    hist = want_hist = torch.zeros((HISTORY, CIF_BITS), device=dev)
+    counts = []
+    for k in range(n):
+        rows.copy_(frames[(k * F + np.arange(F)) % frames.shape[0]])
+        want, want_hist, want_meta = ref_dec._fused(
+            want_hist, *ref_fn._assemble([ref_fn._frames(rows, coarse)],
+                                         dev))
+        torch.cuda.synchronize()
+        vc.reset_launches()
+        demod_cuda.reset_launches()
+        cifs, blob = fn.assemble([fn.frames(rows, coarse)], dev)
+        merged, hist, meta = dec.fused(hist, cifs, blob)
+        counts.append((vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
+                       demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
+                       demod_cuda.SOFT_LAUNCHES))
+        assert torch.equal(merged, want), f"block {k}"
+        assert torch.equal(hist, want_hist) and meta == want_meta
+    assert fn._graph.captured and dec._graph.captured
+    assert hist is dec._hist
+    assert counts[0][0] > 0 and counts[0][2:] == (1, 1, 1)
+    assert all(c == counts[0] for c in counts)
+
+
+@pytest.mark.cuda
+def test_graph_key_change_recaptures_on_card():
+    """Blocks of 8, then 12, then 8 frames (the block graph's and the MSC
+    chain's keys both change): each key's first block is eager, its
+    second captured; every block equals the eager code's."""
+    from dabjax_torch.constants import CIF_BITS
+    from dabjax_torch.msc.deinterleave import HISTORY
+    from dabjax_torch.msc.subchannel import EnsembleDecoder
+    from dabjax_torch.runtime.receiver import BlockFn
+    dev = _card()
+    _, _, p, geoms, frames = _bench_loop("mixed12_uep")
+    fn, dec = BlockFn(p, "u8", device=dev), EnsembleDecoder(geoms, p,
+                                                          device=dev)
+    inputs = {F: (frames[:F].to(dev), torch.zeros(F, device=dev))
+              for F in (8, 12)}
+    hist = want_hist = torch.zeros((HISTORY, CIF_BITS), device=dev)
+    seen = []
+    for k, F in enumerate((8, 8, 8, 12, 12, 12, 8, 8)):
+        rows, coarse = inputs[F]
+        rows.copy_(frames[(k * 5 + np.arange(F)) % frames.shape[0]])
+        want, want_hist, _ = dec._fused(
+            want_hist, *fn._assemble([fn._frames(rows, coarse)], dev))
+        merged, hist, _ = dec.fused(
+            hist, *fn.assemble([fn.frames(rows, coarse)], dev))
+        assert torch.equal(merged, want) and torch.equal(hist, want_hist)
+        seen.append((fn._graph.captured, dec._graph.captured))
+    assert seen == [(False, False), (True, True), (True, True),
+                    (False, False), (True, True), (True, True),
+                    (False, False), (True, True)]
+
+
+def _live(u8, offset, dev, mesh=None):
+    """A live receiver on a loop from ``offset``, recording its routed
+    frames and each block's merged bytes."""
+    from dabbench.common import LoopSource
+    from dabjax_torch.runtime.config import ReceiverConfig
+    from dabjax_torch.runtime.receiver import Receiver
+    frames = []
+
+    class Handler:
+        def __init__(self, sid):
+            self.sid = sid
+
+        def add_logical_frame(self, bits):
+            frames.append((self.sid, np.packbits(bits).tobytes()))
+
+    rx = Receiver(LoopSource(u8, offset),
+                  ReceiverConfig(frames_per_block=4, decode_audio=False,
+                                 decode_data=True),
+                  data_handler_factory=lambda db, sid: Handler(sid),
+                  mesh=mesh, device=dev)
+    return rx, frames
+
+
+def _live_blocks(rx, n):
+    out = []
+    for _ in range(n):
+        blk = rx.stage()
+        out.append(blk.merged.cpu().numpy().tobytes())
+        rx.consume(blk)
+    return out
+
+
+BANK_BLOCKS = 30
+
+
+@pytest.mark.cuda
+def test_bank_channels_keep_their_own_bytes_on_card(monkeypatch):
+    """A two-channel ``MultiReceiver`` of equal shapes (the mixed
+    ensemble from two loop frames): each channel's pulled bytes and
+    routed frames equal its lone receiver's eager run, block by block."""
+    from dabjax_torch.parallel.multihost import MultiReceiver
+    dev = _card()
+    _, loop, p, _, _ = _bench_loop("mixed12_uep")
+    offsets = {"a": 3 * p.T_F, "b": 17 * p.T_F + 999}
+    bank = MultiReceiver({}, device=dev)
+    lives = {name: _live(loop.u8, off, dev) for name, off in offsets.items()}
+    bank.rx = {name: rx for name, (rx, _) in lives.items()}
+    pulled = []
+    pull = bank._pull
+
+    def _pull(blob):
+        pulled.append(pull(blob))
+        return pulled[-1]
+
+    bank._pull = _pull
+    try:
+        for _ in range(BANK_BLOCKS):
+            assert all(bank.step().values())
+        assert all(rx._block_fn._graph.captured and rx._decoder._graph.captured
+                   for rx in bank.rx.values())
+    finally:
+        bank.close()
+    _eager(monkeypatch)
+    for name, off in offsets.items():
+        rx, frames = _live(loop.u8, off, dev)
+        try:
+            lone = _live_blocks(rx, BANK_BLOCKS)
+        finally:
+            rx.close()
+        assert frames == lives[name][1], name
+        for k, big in enumerate(pulled):
+            a = len(pulled[k]) - len(lone[k]) if name == "b" else 0
+            assert big[a: a + len(lone[k])].tobytes() == lone[k], (name, k)
+
+
+@pytest.mark.cuda
+def test_mesh_receiver_equals_single_device_on_card():
+    """``mesh=make_mesh(2)`` of the one card (both positions on it) runs
+    the eager code and routes the single-device receiver's frames, whose
+    blocks replay their graphs."""
+    from dabjax_torch.parallel.mesh import make_mesh
+    dev = _card()
+    _, loop, p, _, _ = _bench_loop("mixed12_uep")
+    runs = {}
+    for name, mesh in (("single", None),
+                       ("mesh", make_mesh(2, devices=[dev] * 2))):
+        rx, frames = _live(loop.u8, 5 * p.T_F, dev, mesh)
+        try:
+            _live_blocks(rx, BANK_BLOCKS)
+            runs[name] = (frames, rx._block_fn._graph,
+                          rx._decoder._graph)
+        finally:
+            rx.close()
+    assert runs["mesh"][0] == runs["single"][0]
+    assert runs["single"][0]
+    assert runs["single"][1].captured and runs["single"][2].captured
+    assert runs["mesh"][1]._key is None and runs["mesh"][2]._key is None
