@@ -36,11 +36,11 @@ non-zero exit at the first failure:
    ms on any format's words; K3's SASS shuffles and votes;
 4. pipeline: the 12 x 96 kbit/s EEP-A ensemble (Mode I, 96 frames, clean
    golden IQ) through ``full_ensemble_pipeline``: every FIB CRC passes and
-   every subchannel's logical frames equal the transmitted payload; K1's
-   and K2's launches in one batch (2 and 2), what the batch clips and
-   casts to int8 (the CIF block and the FIC stream, not the MSC
-   codewords' full-rate stream), and its time (the median of 10 runs;
-   the run fails if the least of them is above 3.75 ms);
+   every subchannel's logical frames equal the transmitted payload; K1's,
+   K2's and the MSC front end's launches in one batch (2, 2 and 1), what
+   the batch clips and casts to int8 (the CIF block and the FIC stream,
+   not the MSC codewords' full-rate stream), and its time (the median of
+   10 runs; the run fails if the least of them is above 3.75 ms);
 5. receiver: ``Receiver.run()`` over a mixed MP2/DAB+ ensemble (u8 upload
    path, 64-frame blocks, audio decode on), then the same blocks with the
    audio decoded in one spawned worker process (``audio_workers=1``: the
@@ -135,10 +135,17 @@ non-zero exit at the first failure:
     fine + coarse bit for bit; one launch of each a call.  The device
     time of each kernel and of its own plain step, of the FFT between
     them, of the whole ``demodulate_rows`` and of the whole plain chain
-    (medians of 5 runs), each kernel beside its bytes at 3.35 TB/s.
+    (medians of 5 runs), each kernel beside its bytes at 3.35 TB/s;
+13. MSC front end: the front-end kernel (``csrc/msc_front.cu``) at the
+    core cell's shape, 12 EEP-A subchannels over 1455 CIFs of phase 12's
+    signal: K1's int8 input equal to the plain torch chain's byte for
+    byte, one launch a call; the device time of each (medians of 5 runs)
+    beside the bytes' bound (0.144 ms: the float block read once, the
+    int8 stream written once).
 
-The kernels' launch counts are reset just before phases 4-5 (K1, K2
-and the demod kernels),
+The kernels' launch counts are reset just before phases 4-5 (K1, K2,
+the demod kernels and the MSC front end, which phase 4's batch launches
+once),
 phase 6 (K3, K4), the probes' ``main()`` runs of phase 10 (the probe
 kernels, and K3 for ``vit_split2``) and phase 11 (K1-K4; counted around
 the mesh path's own calls, not the references it is held to) and read
@@ -566,6 +573,7 @@ def phase_pipeline(dev, report):
     from dabjax_torch.ofdm.demod import min_frame_samples
     from dabjax_torch.runtime.pipeline import full_ensemble_pipeline
     from dabjax_torch.fec import viterbi_cuda as vc
+    from dabjax_torch.msc import front_cuda
 
     p, n_frames = get_mode(1), 96
     services = [ServiceSpec(label=f"S{i:02d}", sid=0x8100 + i, subch_id=i,
@@ -595,7 +603,8 @@ def phase_pipeline(dev, report):
     # main path's counts run on), and what that batch clips and casts to
     # int8: the CIF block and the FIC stream, never the MSC codewords'
     # full-rate stream (an int8 tensor passes through ``to_int8``)
-    before = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES)
+    before = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
+              front_cuda.FRONT_LAUNCHES)
     casts, to_int8 = [], vc.to_int8
 
     def recording(soft):
@@ -608,9 +617,10 @@ def phase_pipeline(dev, report):
     finally:
         vc.to_int8 = to_int8
     per_batch = dict(k1=vc.FORWARD_LAUNCHES - before[0],
-                     k2=vc.TRACEBACK_LAUNCHES - before[1])
-    _check(per_batch == dict(k1=2, k2=2),
-           f"launches per batch {per_batch}, not 2 and 2")
+                     k2=vc.TRACEBACK_LAUNCHES - before[1],
+                     msc_front=front_cuda.FRONT_LAUNCHES - before[2])
+    _check(per_batch == dict(k1=2, k2=2, msc_front=1),
+           f"launches per batch {per_batch}, not 2, 2 and 1")
     full_rate = len(geoms) * n_lf * 4 * (2304 + 6)
     cif_block = n_frames * p.cifs_per_frame * 55296
     cast = sorted(n for dtype, n in casts if dtype != "int8")
@@ -2067,6 +2077,69 @@ def phase_demod(dev, report, golden):
     report["demod"] = out
 
 
+def phase_front(dev, report, golden):
+    """Phase 13: the MSC front-end kernel at the core cell's shape: the 12
+    EEP-A subchannels of phase 4's ensemble over phase 12's 1440 CIFs
+    (360 frames of u8 rows of a real signal) behind a 15-CIF history (the
+    block's own last 15), one launch a call; its K1 input equal to the
+    plain chain's (``step_soft(full_rate_torch(...))`` over the slices of
+    the cast ``cat(hist, cifs)``) byte for byte; the device time of each
+    (medians of 5 runs) beside the bytes' bound (the float block read
+    once, the int8 stream written once)."""
+    import torch
+    from dabjax_torch.fec import viterbi_cuda as vc
+    from dabjax_torch.msc import front_cuda
+    from dabjax_torch.msc.deinterleave import HISTORY
+    from dabjax_torch.msc.subchannel import (EnsembleDecoder,
+                                             full_rate_torch, msc_soft)
+    from dabjax_torch.ofdm import demod
+
+    p, F, geoms = golden["p"], DEMOD_FRAMES, list(golden["geoms"])
+    rows, _ = _demod_rows(golden, F)
+    cifs = demod.demodulate_rows(rows, torch.zeros(F, device=dev), p,
+                                 "u8").cifs
+    hist = cifs[-HISTORY:].clone()
+    dec = EnsembleDecoder(geoms, p, device=dev)
+    (off, bucket), = dec._bucket_starts()
+    g = bucket[0]
+    nbits = 24 * g.bitrate
+
+    def kernel():
+        return dec._full_rate(hist, cifs, off, bucket)
+
+    def plain():
+        soft = msc_soft(torch.cat([hist, cifs]))
+        return vc.step_soft(full_rate_torch(dec._slices(soft, off, bucket),
+                                            g), nbits)
+
+    front_cuda.reset_launches()
+    got = kernel()
+    torch.cuda.synchronize()
+    per_call = front_cuda.FRONT_LAUNCHES
+    _check(per_call == 1, f"msc_front launches a call {per_call}")
+    want = plain().reshape(got.shape)
+    _check(torch.equal(got, want),
+           "msc_front differs from the plain chain's K1 input")
+    T = HISTORY + cifs.shape[0]
+    n_cols = g.length_cus * 64
+    nbytes = (len(bucket) * T * n_cols * 4
+              + len(bucket) * cifs.shape[0] * 4 * (nbits + 6))
+    k, pl = _median_runs(kernel, reps=20), _median_runs(plain, reps=5)
+    bound = _bound(nbytes, 0, "lane_op")
+    bound["x_bound"] = k["median"] / bound["bound_ms"]
+    out = {"shape": [len(bucket), cifs.shape[0], 4 * (nbits + 6)],
+           "launches_a_call": per_call, "max_abs_err": 0.0,
+           "ms": k["median"], "runs_ms": k["runs_ms"],
+           "plain_ms": pl["median"], "plain_runs_ms": pl["runs_ms"],
+           "bytes": nbytes, "bound": bound}
+    print(f"msc_front: {len(bucket)} x {cifs.shape[0]} codewords of "
+          f"{4 * (nbits + 6)} bytes from {T} CIFs equal the plain chain; "
+          f"device ms {k['median']:.4f} (plain chain {pl['median']:.4f}), "
+          f"bound {bound['bound_ms']:.4f} ms ({nbytes} bytes), x bound "
+          f"{bound['x_bound']:.2f}")
+    report["msc_front"] = out
+
+
 #: the card's data-sheet rates (NVIDIA H100 SXM, dense, at 700 W): device
 #: memory; FP32 outside the tensor cores, an FMA counted as 2; one op a
 #: lane and clock (half the FP32 rate: 128 lanes x 132 SMs x 1.98 GHz, the
@@ -2182,6 +2255,7 @@ def _kernel_lines(report, launches):
     bm = chained["per_shape"]["bm [256,8]"]
     f32, bf16 = batched["float32"], batched["bfloat16"]
     dm, demod_src = report["demod"], "dabjax_torch/csrc/demod.cu"
+    fr = report["msc_front"]
     demod_lines = [
         # no TPU kernel: dabjax's demod is a jnp chain XLA fuses; the
         # plain time is the kernel's own step of the plain chain, on
@@ -2329,6 +2403,15 @@ def _kernel_lines(report, launches):
              unit="per dot", runs_ms=bm["runs_ms"], clocks=chained["clocks"],
              per_shape=chained["per_shape"]),
         *demod_lines,
+        # no TPU kernel: dabjax's time de-interleave and depuncture are
+        # jnp slices, a stack and a gather XLA runs; the plain time is the
+        # torch chain from the CIF block and history to K1's input
+        line("msc_front", "dabjax_torch/csrc/msc_front.cu",
+             "none (dabjax/msc/deinterleave.py, fec/puncture.py: jnp)",
+             launches["msc_front"], fr["max_abs_err"], fr["ms"],
+             fr["plain_ms"], None, fr["bound"], runs_ms=fr["runs_ms"],
+             plain_runs_ms=fr["plain_runs_ms"],
+             launches_a_call=fr["launches_a_call"], shape=fr["shape"]),
     ]
 
 
@@ -2353,6 +2436,7 @@ def main() -> int:
 
     from dabjax_torch import _build
     from dabjax_torch.fec import viterbi_cuda as vc
+    from dabjax_torch.msc import front_cuda
     from dabjax_torch.ofdm import demod_cuda
     t0 = time.perf_counter()
     _build.load_library()
@@ -2373,13 +2457,15 @@ def main() -> int:
     timed(phase_words)
     vc.reset_launches()
     demod_cuda.reset_launches()
+    front_cuda.reset_launches()
     golden = timed(phase_pipeline)
     loop_iq = timed(phase_receiver)
     torch.cuda.synchronize()
     launches = {"k1": vc.FORWARD_LAUNCHES, "k2": vc.TRACEBACK_LAUNCHES,
                 "guard_corr": demod_cuda.GUARD_LAUNCHES,
                 "mix_windows": demod_cuda.MIX_LAUNCHES,
-                "dqpsk_soft": demod_cuda.SOFT_LAUNCHES}
+                "dqpsk_soft": demod_cuda.SOFT_LAUNCHES,
+                "msc_front": front_cuda.FRONT_LAUNCHES}
     _check(all(n > 0 for n in launches.values()),
            f"main path did not launch every kernel: {launches}")
     vc.reset_launches()
@@ -2403,6 +2489,7 @@ def main() -> int:
            f"the mesh path did not launch every kernel: {mesh_launches}")
     print(f"launches on the mesh path: {mesh_launches}")
     timed(phase_demod, golden)
+    timed(phase_front, golden)
 
     kernels = _kernel_lines(report, launches)
     for line, k in zip(kernels, ("k1", "k2", "k3", "k4")):
@@ -2418,7 +2505,8 @@ def main() -> int:
                       "formats": report["formats"],
                       "stages": report["stages"],
                       "bank": report["bank"], "trace": report["trace"],
-                      "mesh": report["mesh"], "demod": report["demod"]}))
+                      "mesh": report["mesh"], "demod": report["demod"],
+                      "msc_front": report["msc_front"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

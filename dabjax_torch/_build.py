@@ -147,4 +147,7 @@ def load_library() -> ctypes.CDLL:
     lib.dabjax_demod_dqpsk_soft.argtypes = [vp, vp, i, i, i, i, i, i, f, vp,
                                             vp, ll, vp, ll, vp]
     lib.dabjax_demod_dqpsk_soft.restype = i
+    lib.dabjax_msc_front.argtypes = [vp, vp, i, i, i, ll, vp, i, vp, vp, i,
+                                     i, i, i, vp, vp]
+    lib.dabjax_msc_front.restype = i
     return lib

@@ -34,6 +34,7 @@ from typing import Callable, Hashable, Optional, Sequence, Tuple
 import torch
 
 from dabjax_torch.fec import viterbi_cuda
+from dabjax_torch.msc import front_cuda
 from dabjax_torch.ofdm import demod_cuda
 
 __all__ = ["BlockGraph", "CudaCapture", "LAUNCH_COUNTERS", "layout"]
@@ -45,7 +46,8 @@ LAUNCH_COUNTERS = tuple(
      ("FORWARD_LAUNCHES", "TRACEBACK_LAUNCHES", "WORDS_FORWARD_LAUNCHES",
       "WORDS_TRACEBACK_LAUNCHES")]
     + [(demod_cuda, name) for name in
-       ("GUARD_LAUNCHES", "MIX_LAUNCHES", "SOFT_LAUNCHES")])
+       ("GUARD_LAUNCHES", "MIX_LAUNCHES", "SOFT_LAUNCHES")]
+    + [(front_cuda, "FRONT_LAUNCHES")])
 
 
 def _counts() -> Tuple[int, ...]:

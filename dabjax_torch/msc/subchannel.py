@@ -10,21 +10,22 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from dabjax_torch.constants import CU_BITS, DabParams
+from dabjax_torch.constants import CIF_BITS, CU_BITS, DabParams
 from dabjax_torch.devices import on_device, resolve
 from dabjax_torch.fec import prbs, puncture, viterbi, viterbi_cuda
 from dabjax_torch.graphs import BlockGraph, layout
+from dabjax_torch.msc import front_cuda
 from dabjax_torch.msc.deinterleave import HISTORY, time_deinterleave
 
 __all__ = ["SubchGeometry", "subch_profile", "subch_puncture_mask",
-           "decode_subchannel", "msc_soft",
-           "pack_bits_u8", "EnsembleDecoder"]
+           "decode_subchannel", "decode_full", "full_rate",
+           "full_rate_torch", "msc_soft", "pack_bits_u8", "EnsembleDecoder"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,18 +82,66 @@ def msc_soft(cifs: torch.Tensor) -> torch.Tensor:
     return viterbi_cuda.to_int8(cifs)
 
 
+def _front_kernel(device: torch.device) -> bool:
+    """Whether the MSC front end runs as one kernel on ``device``
+    (:mod:`dabjax_torch.msc.front_cuda`): on a CUDA card under the int8
+    soft formats; the CPU and "f32" run the torch chain."""
+    return device.type == "cuda" and viterbi_cuda.soft_format() != "f32"
+
+
+def full_rate_torch(subch_soft: torch.Tensor, g: SubchGeometry
+                    ) -> torch.Tensor:
+    """The MSC front end as torch ops, the kernel's plain version:
+    ``subch_soft`` [..., T, length_cus*64] -> [..., T - 15, 4*(nbits+6)]
+    full-rate soft bits (:func:`msc_soft`'s type), time de-interleaved
+    and depunctured.  The CPU, the mesh and "f32" run it."""
+    lengths, pis = subch_profile(g.protection, g.bitrate, g.prot_level)
+    return puncture.depuncture_profile(time_deinterleave(msc_soft(subch_soft)),
+                                       lengths, pis)
+
+
+def full_rate(subch_soft: torch.Tensor, g: SubchGeometry) -> torch.Tensor:
+    """:func:`full_rate_torch`'s result, by the front-end kernel on a CUDA
+    card under the int8 formats (float32 or int8 slices read as they lie
+    where their strides allow, else from a contiguous copy)."""
+    if not _front_kernel(subch_soft.device):
+        return full_rate_torch(subch_soft, g)
+    T, n_cols = subch_soft.shape[-2:]
+    x = subch_soft.reshape((-1, T, n_cols))
+    if x.dtype not in (torch.float32, torch.int8):
+        x = msc_soft(x)
+    sb, sr, sc = x.stride()
+    if sc != 1 or sb % CU_BITS or (sr * x.element_size()) % 16 \
+            or x.data_ptr() % 16:
+        x = x.contiguous()
+        sb, sr, _ = x.stride()
+    # subchannel b's rows are rows of one strided view, from column b * sb
+    rows = x.as_strided((T, (x.shape[0] - 1) * sb + n_cols), (sr, 1))
+    starts = torch.arange(x.shape[0], device=x.device) * (sb // CU_BITS)
+    lengths, pis = subch_profile(g.protection, g.bitrate, g.prot_level)
+    out = front_cuda.msc_front(rows, None, starts, n_cols, lengths, pis)
+    return out.reshape(subch_soft.shape[:-2] + out.shape[1:])
+
+
+def decode_full(full: torch.Tensor, g: SubchGeometry) -> torch.Tensor:
+    """Full-rate soft bits [..., 4*(nbits+6)] -> dispersed logical-frame
+    bits [..., 24*bitrate] int32."""
+    return prbs.disperse(viterbi.viterbi_decode(full, 24 * g.bitrate))
+
+
 def decode_subchannel(subch_soft: torch.Tensor, g: SubchGeometry,
                       deinterleave: bool = True) -> torch.Tensor:
     """``subch_soft`` [..., T, length_cus*64] -> [..., T - 15, 24*bitrate]
     int32 logical-frame bits (output t is transmitted logical frame t).
-    Float input is cast by :func:`msc_soft` first; the callers below cast
-    the whole CIF block once and pass int8."""
-    lengths, pis = subch_profile(g.protection, g.bitrate,
-                                g.prot_level)
-    subch_soft = msc_soft(subch_soft)
-    soft = time_deinterleave(subch_soft) if deinterleave else subch_soft
-    full = puncture.depuncture_profile(soft, lengths, pis)
-    return prbs.disperse(viterbi.viterbi_decode(full, 24 * g.bitrate))
+    The front end is :func:`full_rate`: one kernel on a CUDA card under
+    the int8 formats, else the chain, which casts float input by
+    :func:`msc_soft` first (its callers cast the whole CIF block once
+    and pass int8)."""
+    if deinterleave:
+        return decode_full(full_rate(subch_soft, g), g)
+    lengths, pis = subch_profile(g.protection, g.bitrate, g.prot_level)
+    return decode_full(puncture.depuncture_profile(msc_soft(subch_soft),
+                                                   lengths, pis), g)
 
 
 def pack_bits_u8(bits: torch.Tensor) -> torch.Tensor:
@@ -103,18 +152,40 @@ def pack_bits_u8(bits: torch.Tensor) -> torch.Tensor:
     return (x << shifts).sum(dim=-1).to(torch.uint8)
 
 
-def _bucket_bytes(slices: torch.Tensor, g: SubchGeometry) -> torch.Tensor:
-    """[n_subch, T, length_cus*64] -> [n_subch, T-15, 3*bitrate] bit-packed
-    logical frames (uint8)."""
-    return pack_bits_u8(decode_subchannel(slices, g))
+def _bucket_bytes(full: torch.Tensor, g: SubchGeometry) -> torch.Tensor:
+    """Full-rate soft bits [n_subch, T-15, 4*(nbits+6)] -> [n_subch,
+    T-15, 3*bitrate] bit-packed logical frames (uint8)."""
+    return pack_bits_u8(decode_full(full, g))
+
+
+def _next_history(hist: torch.Tensor, cifs: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The last HISTORY CIFs of ``hist`` followed by ``cifs``, written
+    into ``out`` (which may be ``hist``) or a new tensor, without the
+    block: the last HISTORY of ``cifs``, or with fewer new CIFs the end
+    of a small ``cat`` of the two."""
+    n = cifs.shape[0]
+    src = (cifs[n - HISTORY:] if n >= HISTORY
+           else torch.cat([hist, cifs])[-HISTORY:])
+    if out is None:
+        return src.clone() if n >= HISTORY else src
+    return out.copy_(src)
 
 
 class EnsembleDecoder(nn.Module):
     """All-services MSC decoder over shape buckets.
 
     Holds the subchannels' CU start addresses as a device buffer, so
-    :meth:`fused` slices every subchannel with one gather per bucket and
-    no host sync, whatever the start addresses are.
+    every bucket's subchannels are read by it with no host sync, whatever
+    the start addresses are.
+
+    On one CUDA device (no mesh) under the int8 soft formats, each
+    bucket's front end, from the CIF block to K1's input, is one launch
+    of the front-end kernel (:mod:`dabjax_torch.msc.front_cuda`), which
+    reads the history and the new CIFs where they lie.  Elsewhere (the
+    CPU, a mesh, "f32") it is the torch chain: the history concatenated
+    with the CIFs, one gather per bucket by the start buffer, then
+    :func:`full_rate_torch`.
 
     With ``mesh`` set (a :class:`dabjax_torch.parallel.mesh.Mesh` whose
     home is ``device``), each bucket's subchannel axis is padded to a
@@ -136,6 +207,11 @@ class EnsembleDecoder(nn.Module):
             raise ValueError(f"device {device} is not the mesh's home "
                              f"{mesh.home}")
         self.geoms = list(geometries)
+        for g in self.geoms:
+            if g.start_addr < 0 or (g.start_addr + g.length_cus) * CU_BITS \
+                    > CIF_BITS:
+                raise ValueError(f"subchannel {g.subch_id} lies outside the "
+                                 f"CIF: CUs {g.start_addr} + {g.length_cus}")
         self._buckets: Dict[Tuple, List[SubchGeometry]] = {}
         for g in self.geoms:
             self._buckets.setdefault(g.shape_key, []).append(g)
@@ -146,6 +222,26 @@ class EnsembleDecoder(nn.Module):
                                    device=device), persistent=False)
         self._graph = BlockGraph()
         self._hist = None     # the graph's CIF history, carried in place
+
+    def _bucket_starts(self):
+        """(first index into ``starts``, geometries) of each bucket."""
+        off = 0
+        for geoms in self._buckets.values():
+            yield off, geoms
+            off += len(geoms)
+
+    def _kernel(self, device: torch.device) -> bool:
+        return self.mesh is None and _front_kernel(device)
+
+    def _full_rate(self, head: torch.Tensor, tail: Optional[torch.Tensor],
+                   off: int, geoms: List[SubchGeometry]) -> torch.Tensor:
+        """The bucket's full-rate int8 stream by the front-end kernel from
+        the block whose rows are ``head``'s then ``tail``'s."""
+        g = geoms[0]
+        lengths, pis = subch_profile(g.protection, g.bitrate, g.prot_level)
+        return front_cuda.msc_front(head, tail,
+                                    self.starts[off: off + len(geoms)],
+                                    g.length_cus * CU_BITS, lengths, pis)
 
     def _slices(self, soft: torch.Tensor, off: int,
                 geoms: List[SubchGeometry]) -> torch.Tensor:
@@ -175,17 +271,26 @@ class EnsembleDecoder(nn.Module):
         home = self.mesh.home
         return torch.cat([o.to(home) for o in outs])
 
+    def _chain(self, soft: torch.Tensor, off: int,
+               geoms: List[SubchGeometry], finish) -> torch.Tensor:
+        """``finish(full_rate_torch(slices), g)`` over the bucket's slices
+        of the cast block ``soft``, on this device or over the mesh."""
+        g = geoms[0]
+        return self._sharded(self._slices(soft, off, geoms),
+                             lambda part: finish(full_rate_torch(part, g), g))
+
     def decode(self, cifs: torch.Tensor) -> Dict[int, np.ndarray]:
         """``cifs`` [T, 55296] consecutive CIFs (T > 15) ->
         {subch_id: [T-15, 24*bitrate] bits}."""
         out: Dict[int, np.ndarray] = {}
-        soft = msc_soft(cifs)
-        off = 0
-        for geoms in self._buckets.values():
-            bits = self._sharded(
-                self._slices(soft, off, geoms),
-                lambda part: decode_subchannel(part, geoms[0]))
-            off += len(geoms)
+        kernel = self._kernel(cifs.device)
+        soft = None if kernel else msc_soft(cifs)
+        for off, geoms in self._bucket_starts():
+            if kernel:
+                bits = decode_full(self._full_rate(cifs, None, off, geoms),
+                                   geoms[0])
+            else:
+                bits = self._chain(soft, off, geoms, decode_full)
             bits = bits.cpu().numpy()
             for i, g in enumerate(geoms):   # enumerate trims pad rows
                 out[g.subch_id] = bits[i]
@@ -193,13 +298,13 @@ class EnsembleDecoder(nn.Module):
 
     def fused(self, hist: torch.Tensor, cifs: torch.Tensor,
               blob: torch.Tensor) -> Tuple:
-        """The whole per-block MSC chain: history concat, per-bucket
-        slicing, decode and bit-pack (on this device, or split over the
-        mesh), merge behind ``blob`` on this device.  Returns
-        ``(merged_u8, new_hist, bucket_meta)`` with bucket_meta listing
-        (geoms, output_shape) in merge order for the host-side split;
-        on a mesh the shapes count the pad rows, which the split trims by
-        enumerating the geometries.
+        """The whole per-block MSC chain: per-bucket front end (the
+        history read before the CIFs), decode and bit-pack (on this
+        device, or split over the mesh), merge behind ``blob`` on this
+        device.  Returns ``(merged_u8, new_hist, bucket_meta)`` with
+        bucket_meta listing (geoms, output_shape) in merge order for the
+        host-side split; on a mesh the shapes count the pad rows, which
+        the split trims by enumerating the geometries.
 
         On one CUDA device the chain replays as this object's CUDA graph
         from its second call at a key on: ``merged_u8`` is the graph's
@@ -222,31 +327,38 @@ class EnsembleDecoder(nn.Module):
                                      device=hist.device)
         if hist.data_ptr() != self._hist.data_ptr():
             self._hist.copy_(hist)
-        merged, meta = self._graph.replay(
-            functools.partial(self._fused_in_place, cifs, blob),
-            cifs.device)
+        merged, _, meta = self._graph.replay(
+            functools.partial(self._fused, self._hist, cifs, blob,
+                              self._hist), cifs.device)
         return merged, self._hist, meta
 
-    def _fused_in_place(self, cifs: torch.Tensor, blob: torch.Tensor):
-        """:meth:`_fused` on the decoder's history buffer, which it then
-        overwrites with the new history: ``(merged_u8, bucket_meta)``."""
-        merged, hist, meta = self._fused(self._hist, cifs, blob)
-        self._hist.copy_(hist)
-        return merged, meta
-
     def _fused(self, hist: torch.Tensor, cifs: torch.Tensor,
-               blob: torch.Tensor) -> Tuple:
-        """:meth:`fused`'s chain, issued op by op."""
+               blob: torch.Tensor, out_hist: Optional[torch.Tensor] = None
+               ) -> Tuple:
+        """:meth:`fused`'s chain, issued op by op; the new history goes
+        into ``out_hist`` (which may be ``hist``) when it is given."""
+        if self._kernel(cifs.device):
+            packed = [_bucket_bytes(self._full_rate(hist, cifs, off, geoms),
+                                    geoms[0])
+                      for off, geoms in self._bucket_starts()]
+            new_hist = _next_history(hist, cifs, out_hist)
+        else:
+            packed, new_hist = self._fused_chain(hist, cifs, out_hist)
+        meta = [(geoms, tuple(p.shape))
+                for (_, geoms), p in zip(self._bucket_starts(), packed)]
+        return torch.cat([blob] + [p.reshape(-1) for p in packed]), \
+            new_hist, meta
+
+    def _fused_chain(self, hist: torch.Tensor, cifs: torch.Tensor,
+                     out_hist: Optional[torch.Tensor] = None):
+        """The torch chain's packed bytes of each bucket and the new
+        history: the block concatenated, cast once (the history itself
+        stays float), sliced by bucket."""
         block = torch.cat([hist, cifs], dim=0)
-        soft = msc_soft(block)           # the history itself stays float
-        parts = [blob]
-        meta = []
-        off = 0
-        for geoms in self._buckets.values():
-            packed = self._sharded(
-                self._slices(soft, off, geoms),
-                lambda part: _bucket_bytes(part, geoms[0]))
-            parts.append(packed.reshape(-1))
-            meta.append((geoms, tuple(packed.shape)))
-            off += len(geoms)
-        return torch.cat(parts), block[-HISTORY:], meta
+        soft = msc_soft(block)
+        packed = [self._chain(soft, off, geoms, _bucket_bytes)
+                  for off, geoms in self._bucket_starts()]
+        new_hist = block[-HISTORY:]
+        if out_hist is not None:
+            new_hist = out_hist.copy_(new_hist)
+        return packed, new_hist

@@ -28,8 +28,8 @@ from dabjax_torch.devices import on_device
 from dabjax_torch.fic.fic_decoder import decode_fic
 from dabjax_torch.msc.cif import cifs_from_soft
 from dabjax_torch.msc.deinterleave import HISTORY
-from dabjax_torch.msc.subchannel import (SubchGeometry, decode_subchannel,
-                                         msc_soft)
+from dabjax_torch.msc.subchannel import (SubchGeometry, decode_full,
+                                         full_rate_torch, msc_soft)
 from dabjax_torch.ofdm import demod
 from dabjax_torch.parallel.mesh import Mesh
 
@@ -70,7 +70,7 @@ def sharded_ensemble_step(mesh: Mesh, p: DabParams, proto: SubchGeometry):
                + torch.arange(n_bits, device=block.device))
         slices = block.index_select(1, idx.reshape(-1))
         slices = slices.reshape(block.shape[0], -1, n_bits).transpose(0, 1)
-        return decode_subchannel(slices, proto)
+        return decode_full(full_rate_torch(slices, proto), proto)
 
     @torch.no_grad()
     def step(rows: Sequence[torch.Tensor],

@@ -15,12 +15,11 @@ import torch
 from torch import nn
 
 from dabjax_torch.constants import CU_BITS, DabParams
-from dabjax_torch.fec import puncture, viterbi
+from dabjax_torch.fec import viterbi
 from dabjax_torch.fic.fic_decoder import decode_fic
 from dabjax_torch.msc.cif import cifs_from_soft
-from dabjax_torch.msc.deinterleave import time_deinterleave
 from dabjax_torch.msc.subchannel import (SubchGeometry, decode_subchannel,
-                                         msc_soft, subch_profile)
+                                         full_rate, msc_soft)
 from dabjax_torch.ofdm import demod
 
 __all__ = ["FramePipeline", "FullEnsemblePipeline", "frame_pipeline",
@@ -118,13 +117,12 @@ def pipeline_stages(p: DabParams, geoms: Sequence[SubchGeometry], *,
     deint_depunct | viterbi_forward | traceback_dispersal (= full -
     viterbi_forward).  ``deint_depunct`` holds the int8 formats' clip and
     cast of the CIF block (:func:`msc_soft`), which comes before its
-    gathers, so ``viterbi_forward`` is the forward kernel and nothing
+    gathers, and the front end (:func:`full_rate`: on a card the
+    front-end kernel), so ``viterbi_forward`` is the forward kernel and nothing
     else; it folds in ``dec[0, 0, 0]`` of the decision layout
     ``viterbi_cuda.SOFT_FMT`` gives."""
     full_pipe = FullEnsemblePipeline(p, geoms, device=device)
     proto, idx = full_pipe.proto, full_pipe.idx
-    lengths, pis = subch_profile(proto.protection, proto.bitrate,
-                                 proto.prot_level)
     dev = full_pipe.device
 
     def _front(rows):
@@ -137,8 +135,7 @@ def pipeline_stages(p: DabParams, geoms: Sequence[SubchGeometry], *,
 
     def _prep(soft):
         slices = msc_soft(cifs_from_soft(soft, p))[:, idx].transpose(0, 1)
-        return puncture.depuncture_profile(time_deinterleave(slices),
-                                           lengths, pis)
+        return full_rate(slices, proto)
 
     def s_demod(rows):
         return _fold(_front(rows))

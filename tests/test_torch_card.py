@@ -701,9 +701,12 @@ def test_graph_blocks_equal_eager_blocks_on_card(name):
     block graph and the MSC chain as the benchmark's core cell calls
     them, the history carried: each block's merged bytes and history
     equal those of the same objects' eager code, from the first block
-    (eager), the second (captured) and every replay; the launch counters
-    read the eager code's counts a block."""
+    (eager), the second (captured) and every replay, and the eager code's
+    equal the torch chain's (``_fused_chain``); the launch counters read
+    the eager code's counts a block, the front-end kernel's one launch a
+    bucket."""
     from dabjax_torch.constants import CIF_BITS
+    from dabjax_torch.msc import front_cuda
     from dabjax_torch.msc.deinterleave import HISTORY
     from dabjax_torch.msc.subchannel import EnsembleDecoder
     from dabjax_torch.ofdm import demod_cuda
@@ -722,22 +725,29 @@ def test_graph_blocks_equal_eager_blocks_on_card(name):
     counts = []
     for k in range(n):
         rows.copy_(frames[(k * F + np.arange(F)) % frames.shape[0]])
-        want, want_hist, want_meta = ref_dec._fused(
-            want_hist, *ref_fn._assemble([ref_fn._frames(rows, coarse)],
-                                         dev))
+        ref_cifs, ref_blob = ref_fn._assemble(
+            [ref_fn._frames(rows, coarse)], dev)
+        chain, chain_hist = ref_dec._fused_chain(want_hist, ref_cifs)
+        want, want_hist, want_meta = ref_dec._fused(want_hist, ref_cifs,
+                                                    ref_blob)
+        assert torch.equal(want, torch.cat(
+            [ref_blob] + [c.reshape(-1) for c in chain])), f"block {k}"
+        assert torch.equal(want_hist, chain_hist)
         torch.cuda.synchronize()
         vc.reset_launches()
         demod_cuda.reset_launches()
+        front_cuda.reset_launches()
         cifs, blob = fn.assemble([fn.frames(rows, coarse)], dev)
         merged, hist, meta = dec.fused(hist, cifs, blob)
         counts.append((vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
                        demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
-                       demod_cuda.SOFT_LAUNCHES))
+                       demod_cuda.SOFT_LAUNCHES, front_cuda.FRONT_LAUNCHES))
         assert torch.equal(merged, want), f"block {k}"
         assert torch.equal(hist, want_hist) and meta == want_meta
     assert fn._graph.captured and dec._graph.captured
     assert hist is dec._hist
-    assert counts[0][0] > 0 and counts[0][2:] == (1, 1, 1)
+    assert counts[0][0] > 0 and counts[0][2:] == (1, 1, 1,
+                                                  len(dec._buckets))
     assert all(c == counts[0] for c in counts)
 
 
@@ -770,6 +780,130 @@ def test_graph_key_change_recaptures_on_card():
     assert seen == [(False, False), (True, True), (True, True),
                     (False, False), (True, True), (True, True),
                     (False, False), (True, True)]
+
+
+#: the soft values the front end must cast as ``to_int8`` does
+_FRONT_SPECIAL = [127.5, -127.5, 0.9, -0.9, 1e6, -1e6, float("inf"),
+                  -float("inf")]
+
+
+def _front_cases(name):
+    """(geometries at odd start addresses, as many a bucket as the
+    configuration has, up to 2) of a benchmark configuration, or of an
+    EEP-B profile (64 kbit/s, level 2)."""
+    import json
+    import pathlib
+    from dabbench.common import geometries
+    from dabjax_torch.msc.subchannel import SubchGeometry
+    if name == "eep_b":
+        protos = [SubchGeometry(0, 0, 42, 64, "EEP-B", 2)] * 3
+    else:
+        path = pathlib.Path(__file__).resolve().parents[1] / "dabbench" \
+            / "configs" / f"{name}.json"
+        with open(path) as f:
+            protos = geometries(json.load(f))
+    per_key = {}
+    for g in protos:
+        per_key.setdefault(g.shape_key, []).append(g)
+    out, cursor = [], 1
+    for gs in per_key.values():
+        for g in gs[:2]:
+            cursor += 1 - cursor % 2              # an odd start
+            out.append(SubchGeometry(len(out), cursor, g.length_cus,
+                                     g.bitrate, g.protection, g.prot_level))
+            cursor += g.length_cus + 1
+    assert cursor <= 864
+    return out
+
+
+def _front_block(n_new, seed, dev):
+    """(history [15, 55296], new CIFs [n_new, 55296]) float32 soft bits in
+    -160 .. 160 with ``_FRONT_SPECIAL`` planted."""
+    from dabjax_torch.constants import CIF_BITS
+    from dabjax_torch.msc.deinterleave import HISTORY
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.rand((HISTORY + n_new, CIF_BITS), generator=g, device=dev)
+         * 320 - 160)
+    at = torch.randint(0, x.numel(), (64 * len(_FRONT_SPECIAL),),
+                       generator=g, device=dev)
+    x.view(-1)[at] = torch.tensor(_FRONT_SPECIAL, device=dev).repeat(64)
+    return x[:HISTORY].clone(), x[HISTORY:].clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("new", [4, 16, 1440])
+@pytest.mark.parametrize("name", ["dabplus12_eep3a", "mixed12_uep", "eep_b"])
+def test_msc_front_kernel_equals_the_chain_on_card(name, new):
+    """The front-end kernel's K1 input against ``step_soft(
+    depuncture_profile(time_deinterleave(msc_soft(cat(hist, cifs)))))``
+    byte for byte, for every bucket of the configuration at odd start
+    addresses: from the history and the new CIFs where they lie
+    (``EnsembleDecoder``), and from the bucket's float32 and int8 slices
+    (``full_rate``, the entry of ``decode_subchannel``); one launch a
+    bucket."""
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.msc import front_cuda
+    from dabjax_torch.msc.subchannel import (EnsembleDecoder, full_rate,
+                                             full_rate_torch, msc_soft)
+    dev = _card()
+    dec = EnsembleDecoder(_front_cases(name), get_mode(1), device=dev)
+    hist, cifs = _front_block(new, new + len(dec.geoms), dev)
+    block = torch.cat([hist, cifs])
+    soft = msc_soft(block)
+    for off, geoms in dec._bucket_starts():
+        g = geoms[0]
+        nbits = 24 * g.bitrate
+        want = vc.step_soft(full_rate_torch(dec._slices(soft, off, geoms), g),
+                            nbits).reshape(len(geoms), new, -1)
+        front_cuda.reset_launches()
+        got = dec._full_rate(hist, cifs, off, geoms)
+        from_float = full_rate(dec._slices(block, off, geoms), g)
+        from_int8 = full_rate(dec._slices(soft, off, geoms), g)
+        torch.cuda.synchronize()
+        assert front_cuda.FRONT_LAUNCHES == 3
+        for what, t in (("block", got), ("float32 slices", from_float),
+                        ("int8 slices", from_int8)):
+            assert t.dtype == torch.int8 and t.is_contiguous()
+            assert torch.equal(t, want), (g.shape_key, what)
+
+
+@pytest.mark.cuda
+def test_msc_front_refuses_bad_input_on_card():
+    """The wrapper raises on a CPU tensor, another dtype, a 1-D or
+    strided head, rows off 16 bytes, a tail unlike the head, bad starts
+    and too few columns, and launches nothing."""
+    from dabjax_torch.msc import front_cuda
+    dev = _card()
+    lengths, pis = [69, 3], [8, 7]                # EEP-A 96 kbit/s, level 3
+    rows = torch.zeros((20, 4608 * 2), device=dev)
+    starts = torch.tensor([0, 72], device=dev)
+    front_cuda.reset_launches()
+    assert front_cuda.msc_front(rows, None, starts, 4608, lengths,
+                                pis).shape == (2, 5, 9240)
+    assert front_cuda.FRONT_LAUNCHES == 1
+    bad = [
+        (rows.cpu(), None, starts.cpu(), 4608),
+        (rows.double(), None, starts, 4608),
+        (rows.view(-1), None, starts, 4608),
+        (rows.t(), None, starts, 4608),
+        (rows.view(-1)[1: 1 + 19 * 9216].view(19, 9216), None, starts,
+         4608),
+        (torch.zeros((20, 9217), device=dev)[:, :9216], None, starts, 4608),
+        (rows[:15], rows[15:].to(torch.int8), starts, 4608),
+        (rows[:15], torch.zeros((5, 9216 + 16), device=dev)[:, :9216],
+         starts, 4608),
+        (rows, None, starts.to(torch.int32), 4608),
+        (rows, None, starts.cpu(), 4608),
+        (rows, None, torch.stack([starts, starts]).t(), 4608),
+        (rows, None, starts, 4600),
+        (rows, None, starts, 4616),
+    ]
+    front_cuda.reset_launches()
+    for k, (head, tail, st, n_cols) in enumerate(bad):
+        with pytest.raises(ValueError):
+            front_cuda.msc_front(head, tail, st, n_cols, lengths, pis)
+            pytest.fail(f"case {k} did not raise")
+    assert front_cuda.FRONT_LAUNCHES == 0
 
 
 def _live(u8, offset, dev, mesh=None):

@@ -184,8 +184,8 @@ def test_stage_prefixes_reduce_no_large_tensor(golden, monkeypatch):
                         spy("demod", demod.demodulate_frames_cfo))
     monkeypatch.setattr(pipeline, "decode_fic",
                         spy("fic", pipeline.decode_fic))
-    monkeypatch.setattr(pipeline, "time_deinterleave",
-                        spy("deinterleave", pipeline.time_deinterleave))
+    monkeypatch.setattr(pipeline, "full_rate",
+                        spy("deinterleave", pipeline.full_rate))
     monkeypatch.setattr(viterbi, "viterbi_forward_words",
                         spy("forward", viterbi.viterbi_forward_words,
                             lambda soft, nbits: nbits == msc_nbits))
