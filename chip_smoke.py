@@ -143,10 +143,9 @@ non-zero exit at the first failure:
     beside the bytes' bound (0.144 ms: the float block read once, the
     int8 stream written once).
 
-The kernels' launch counts are reset just before phases 4-5 (K1, K2,
-the demod kernels and the MSC front end, which phase 4's batch launches
-once),
-phase 6 (K3, K4), the probes' ``main()`` runs of phase 10 (the probe
+The kernels' launch counts (``_build.LAUNCHES``) are cleared just
+before phases 4-5 (K1, K2, the demod kernels and the MSC front end,
+which phase 4's batch launches once), phase 6 (K3, K4), the probes' ``main()`` runs of phase 10 (the probe
 kernels, and K3 for ``vit_split2``) and phase 11 (K1-K4; counted around
 the mesh path's own calls, not the references it is held to) and read
 just after; each kernel must have run there (the plane forward once for
@@ -184,6 +183,17 @@ def _fail(msg: str) -> int:
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def _launched(*keys) -> dict:
+    """{key: the kernel launches ``_build.LAUNCHES`` holds under it}."""
+    from dabjax_torch import _build
+    return {k: _build.LAUNCHES[k] for k in keys}
+
+
+def _clear_launches() -> None:
+    from dabjax_torch import _build
+    _build.LAUNCHES.clear()
 
 
 def _clocks() -> str:
@@ -573,7 +583,6 @@ def phase_pipeline(dev, report):
     from dabjax_torch.ofdm.demod import min_frame_samples
     from dabjax_torch.runtime.pipeline import full_ensemble_pipeline
     from dabjax_torch.fec import viterbi_cuda as vc
-    from dabjax_torch.msc import front_cuda
 
     p, n_frames = get_mode(1), 96
     services = [ServiceSpec(label=f"S{i:02d}", sid=0x8100 + i, subch_id=i,
@@ -603,8 +612,7 @@ def phase_pipeline(dev, report):
     # main path's counts run on), and what that batch clips and casts to
     # int8: the CIF block and the FIC stream, never the MSC codewords'
     # full-rate stream (an int8 tensor passes through ``to_int8``)
-    before = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
-              front_cuda.FRONT_LAUNCHES)
+    before = _launched("k1", "k2", "msc_front")
     casts, to_int8 = [], vc.to_int8
 
     def recording(soft):
@@ -616,9 +624,7 @@ def phase_pipeline(dev, report):
         pipe(rows)
     finally:
         vc.to_int8 = to_int8
-    per_batch = dict(k1=vc.FORWARD_LAUNCHES - before[0],
-                     k2=vc.TRACEBACK_LAUNCHES - before[1],
-                     msc_front=front_cuda.FRONT_LAUNCHES - before[2])
+    per_batch = {k: n - before[k] for k, n in _launched(*before).items()}
     _check(per_batch == dict(k1=2, k2=2, msc_front=1),
            f"launches per batch {per_batch}, not 2, 2 and 1")
     full_rate = len(geoms) * n_lf * 4 * (2304 + 6)
@@ -745,14 +751,12 @@ def phase_formats(dev, report, golden):
     try:
         for fmt in ("i8mxu", "f32"):
             vc.SOFT_FMT = fmt
-            before = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
-                      vc.WORDS_FORWARD_LAUNCHES, vc.WORDS_TRACEBACK_LAUNCHES)
+            before = _launched("k1", "k2", "k3", "k4")
             n_fib, n_lf = _check_ensemble(*pipe(rows), golden)
-            after = (vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
-                     vc.WORDS_FORWARD_LAUNCHES, vc.WORDS_TRACEBACK_LAUNCHES)
-            _check(after[:2] == before[:2],
+            after = _launched(*before)
+            _check(after["k1"] == before["k1"] and after["k2"] == before["k2"],
                    f"{fmt}: K1/K2 launched ({before} -> {after})")
-            _check(after[2] > before[2] and after[3] > before[3],
+            _check(after["k3"] > before["k3"] and after["k4"] > before["k4"],
                    f"{fmt}: K3/K4 not launched ({before} -> {after})")
             runs = _runs_ms(lambda: pipe(rows), runs=10, reps=5)
             sec = (runs[4] + runs[5]) / 2e3
@@ -1540,7 +1544,6 @@ def phase_probes(dev, report):
     """Phase 10: the probe kernels checked, then each probe's main() run
     in process with the launch counts set to 0 just before."""
     import torch
-    from dabjax_torch.fec import viterbi_cuda as vc
     from dabjax_torch.tools import (hbm_probe, vit_dotshapes, vit_split,
                                     vit_split2, vit_variants, vpu_probe,
                                     vpu_probe2)
@@ -1560,16 +1563,15 @@ def phase_probes(dev, report):
              (vit_dotshapes, None, dots_lines, "us/step"),
              (vpu_probe2, ["dot"], 2 * len(vpu_probe2.DOT_SHAPES), "us/dot")]
     torch.cuda.synchronize()
-    for mod in (vc, vv2, hbm_probe, vit_variants, vpu_probe, vpu_probe2,
-                vit_dotshapes):
-        mod.reset_launches()
+    _clear_launches()
     plane_launches = {}
     for mod, argv, n_cases, unit in cases:
         name = mod.__name__.rsplit(".", 1)[1]
-        before = vit_variants.LAUNCHES
+        before = _launched("forward_plane")["forward_plane"]
         with contextlib.redirect_stdout(io.StringIO()) as buf:
             rc = mod.main() if argv is None else mod.main(argv)
-        plane_launches[name] = vit_variants.LAUNCHES - before
+        plane_launches[name] = (_launched("forward_plane")["forward_plane"]
+                                - before)
         lines = [line for line in buf.getvalue().splitlines() if line]
         print("\n".join(f"probe {name}: {line}" for line in lines))
         _check(rc == 0, f"{name}.main({argv or ''}) returned {rc}")
@@ -1577,19 +1579,16 @@ def phase_probes(dev, report):
                f"{name}.main({argv or ''}) printed {len(lines)} lines, not "
                f"{n_cases}")
     torch.cuda.synchronize()
-    launches = {"vit_variants2": vv2.LAUNCHES,
-                "vit_split2": vc.WORDS_FORWARD_LAUNCHES,
-                "hbm_copy": hbm_probe.COPY_LAUNCHES,
-                "hbm_plane": hbm_probe.PLANE_LAUNCHES,
-                "vit_variants": plane_launches["vit_variants"],
-                "vit_split": plane_launches["vit_split"],
-                "vpu_probe": vpu_probe.LAUNCHES,
-                "vpu_probe2": vpu_probe2.LAUNCHES,
-                "dot_steps": vit_dotshapes.LAUNCHES,
-                "dot_steps_bf16": vit_dotshapes.BF16_LAUNCHES,
-                "dot_batched": vit_dotshapes.BATCHED_LAUNCHES,
-                "dot_batched_bf16": vit_dotshapes.BATCHED_BF16_LAUNCHES,
-                "dots_chain": vpu_probe2.DOT_LAUNCHES}
+    # the report's names -> the registry's keys
+    keys = {"vit_variants2": "forward_words_stage", "vit_split2": "k3",
+            "hbm_copy": "scale_copy", "hbm_plane": "decision_plane",
+            "vpu_probe": "chain", "vpu_probe2": "pair_chain",
+            **{k: k for k in ("dot_steps", "dot_steps_bf16", "dot_batched",
+                              "dot_batched_bf16", "dots_chain")}}
+    counted = _launched(*keys.values())
+    launches = {name: counted[k] for name, k in keys.items()}
+    launches.update({k: plane_launches[k]
+                     for k in ("vit_variants", "vit_split")})
     _check(all(n > 0 for n in launches.values()),
            f"the probes did not launch every kernel: {launches}")
     print(f"launches of the probes' main(): {launches}")
@@ -1602,19 +1601,12 @@ def phase_probes(dev, report):
 MESH_GRID, MESH_STEP_GATE_MS = (2, 4), 20.0
 
 
-def _launch_counts():
-    from dabjax_torch.fec import viterbi_cuda as vc
-    return {"k1": vc.FORWARD_LAUNCHES, "k2": vc.TRACEBACK_LAUNCHES,
-            "k3": vc.WORDS_FORWARD_LAUNCHES,
-            "k4": vc.WORDS_TRACEBACK_LAUNCHES}
-
-
 @contextlib.contextmanager
 def _counted(acc: dict):
     """Add the Viterbi kernels' launches made in the block to ``acc``."""
-    before = _launch_counts()
+    before = _launched("k1", "k2", "k3", "k4")
     yield
-    for k, n in _launch_counts().items():
+    for k, n in _launched(*before).items():
         acc[k] = acc.get(k, 0) + n - before[k]
 
 
@@ -1984,12 +1976,11 @@ def phase_demod(dev, report, golden):
     _check(p.mode == DEMOD_MODE, f"phase 4 rendered mode {p.mode}")
     rows, off = _demod_rows(golden, F)
     coarse = torch.full((F,), -3.0 * p.carrier_diff, device=dev)
-    demod_cuda.reset_launches()
+    _clear_launches()
     d = demod.demodulate_rows(rows, coarse, p, "u8")
     torch.cuda.synchronize()
-    per_call = (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
-                demod_cuda.SOFT_LAUNCHES)
-    _check(per_call == (1, 1, 1), f"demod launches a call {per_call}")
+    per_call = _launched("guard_corr", "mix_windows", "dqpsk_soft")
+    _check(set(per_call.values()) == {1}, f"demod launches a call {per_call}")
 
     def bits(t):
         return (torch.view_as_real(t) if t.is_complex() else t).view(
@@ -2088,7 +2079,6 @@ def phase_front(dev, report, golden):
     once, the int8 stream written once)."""
     import torch
     from dabjax_torch.fec import viterbi_cuda as vc
-    from dabjax_torch.msc import front_cuda
     from dabjax_torch.msc.deinterleave import HISTORY
     from dabjax_torch.msc.subchannel import (EnsembleDecoder,
                                              full_rate_torch, msc_soft)
@@ -2112,10 +2102,10 @@ def phase_front(dev, report, golden):
         return vc.step_soft(full_rate_torch(dec._slices(soft, off, bucket),
                                             g), nbits)
 
-    front_cuda.reset_launches()
+    _clear_launches()
     got = kernel()
     torch.cuda.synchronize()
-    per_call = front_cuda.FRONT_LAUNCHES
+    per_call = _launched("msc_front")["msc_front"]
     _check(per_call == 1, f"msc_front launches a call {per_call}")
     want = plain().reshape(got.shape)
     _check(torch.equal(got, want),
@@ -2436,8 +2426,6 @@ def main() -> int:
 
     from dabjax_torch import _build
     from dabjax_torch.fec import viterbi_cuda as vc
-    from dabjax_torch.msc import front_cuda
-    from dabjax_torch.ofdm import demod_cuda
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
@@ -2455,24 +2443,18 @@ def main() -> int:
     print(f"clocks under a device sleep (sm, max sm): {_clocks()}")
     timed(phase_kernels)
     timed(phase_words)
-    vc.reset_launches()
-    demod_cuda.reset_launches()
-    front_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     golden = timed(phase_pipeline)
     loop_iq = timed(phase_receiver)
     torch.cuda.synchronize()
-    launches = {"k1": vc.FORWARD_LAUNCHES, "k2": vc.TRACEBACK_LAUNCHES,
-                "guard_corr": demod_cuda.GUARD_LAUNCHES,
-                "mix_windows": demod_cuda.MIX_LAUNCHES,
-                "dqpsk_soft": demod_cuda.SOFT_LAUNCHES,
-                "msc_front": front_cuda.FRONT_LAUNCHES}
+    launches = _launched("k1", "k2", "guard_corr", "mix_windows",
+                         "dqpsk_soft", "msc_front")
     _check(all(n > 0 for n in launches.values()),
            f"main path did not launch every kernel: {launches}")
-    vc.reset_launches()
+    _build.LAUNCHES.clear()
     timed(phase_formats, golden)
     torch.cuda.synchronize()
-    launches.update(k3=vc.WORDS_FORWARD_LAUNCHES,
-                    k4=vc.WORDS_TRACEBACK_LAUNCHES)
+    launches.update(_launched("k3", "k4"))
     _check(launches["k3"] > 0 and launches["k4"] > 0,
            f"the word-format path did not launch K3/K4: {launches}")
     print(f"launches on the main path: {launches}")
@@ -2481,7 +2463,7 @@ def main() -> int:
     timed(phase_trace, golden)
     timed(phase_probes)
     torch.cuda.synchronize()
-    vc.reset_launches()
+    _build.LAUNCHES.clear()
     timed(phase_mesh, golden, loop_iq)
     torch.cuda.synchronize()
     mesh_launches = report["mesh"]["path_launches"]

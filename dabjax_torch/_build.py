@@ -1,4 +1,5 @@
-"""Builds the package's CUDA sources into one shared library.
+"""Builds the package's CUDA sources into one shared library, and is the
+one way to launch and count a kernel in it.
 
 The sources in ``dabjax_torch/csrc`` (``*.cu``, with the ``*.cuh``
 headers they include) are compiled with ``nvcc`` for
@@ -6,10 +7,18 @@ headers they include) are compiled with ``nvcc`` for
 source, all started together, then one link), cached by a hash of the
 sources and flags, and loaded with ``ctypes`` (plain C interface, no
 PyTorch headers).  Nothing here runs at import time.
+
+Every C entry returns a CUDA error code and takes the stream last.  A
+wrapper module declares the entries it calls in one table, ``ENTRIES``
+(entry name -> the ctypes types of its arguments before the stream),
+and launches them only through :func:`launch`, which declares an entry
+on its first call, counts the launch in :data:`LAUNCHES` and raises on
+an error code.  This module knows no kernel by name.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -19,8 +28,11 @@ import shutil
 import subprocess
 import tempfile
 import time
+from typing import Mapping, Sequence
 
-__all__ = ["load_library", "sass", "build_seconds"]
+import torch
+
+__all__ = ["LAUNCHES", "launch", "load_library", "sass", "build_seconds"]
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -30,6 +42,12 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 #: wall seconds the last build took (0.0 when the cached library was used)
 build_seconds = 0.0
+
+#: launches of each kernel since the last ``LAUNCHES.clear()``, by the
+#: name its wrapper counts it under ("k1" .. "k4", "guard_corr",
+#: "mix_windows", "dqpsk_soft", "msc_front", the probes'); a CUDA graph's
+#: replay adds what its capture counted (``graphs.BlockGraph``)
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -72,8 +90,7 @@ def sass() -> str:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernels; declares every entry
-    point's argument and return types."""
+    """Compile (if needed) and load the kernels."""
     global build_seconds
     sources = _sources()
     out = BUILD / f"libdabjax_torch_{_digest(sources)}.so"
@@ -106,48 +123,29 @@ def load_library() -> ctypes.CDLL:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(out))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dabjax_viterbi_forward.argtypes = [vp, vp, vp, i, i, vp]
-    lib.dabjax_viterbi_forward.restype = i
-    lib.dabjax_viterbi_traceback.argtypes = [vp, vp, i, i, i, vp]
-    lib.dabjax_viterbi_traceback.restype = i
-    lib.dabjax_viterbi_forward_words.argtypes = [vp, vp, vp, vp, vp, i, i, i,
-                                                  vp]
-    lib.dabjax_viterbi_forward_words.restype = i
-    lib.dabjax_viterbi_traceback_words.argtypes = [vp, vp, vp, i, i, i, vp]
-    lib.dabjax_viterbi_traceback_words.restype = i
-    lib.dabjax_probe_forward_words_stage.argtypes = [vp, vp, vp, i, i, i, vp]
-    lib.dabjax_probe_forward_words_stage.restype = i
-    lib.dabjax_probe_scale_copy.argtypes = [vp, vp, ctypes.c_longlong, vp]
-    lib.dabjax_probe_scale_copy.restype = i
-    lib.dabjax_probe_decision_plane.argtypes = [vp, vp, i, i, i, i, vp]
-    lib.dabjax_probe_decision_plane.restype = i
-    lib.dabjax_probe_forward_plane.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
-                                               i, vp]
-    lib.dabjax_probe_forward_plane.restype = i
-    ll, u = ctypes.c_longlong, ctypes.c_uint
-    lib.dabjax_probe_chain.argtypes = [vp, vp, ll, i, i, i, u, u, vp]
-    lib.dabjax_probe_chain.restype = i
-    lib.dabjax_probe_pair_chain.argtypes = [vp, vp, vp, ll, i, i, u, vp]
-    lib.dabjax_probe_pair_chain.restype = i
-    lib.dabjax_probe_dot_steps.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
-    lib.dabjax_probe_dot_steps.restype = i
-    lib.dabjax_probe_dot_batched.argtypes = [vp, vp, vp, i, i, ll, vp]
-    lib.dabjax_probe_dot_batched.restype = i
-    lib.dabjax_probe_dots.argtypes = [vp, vp, vp, i, i, i, i, vp]
-    lib.dabjax_probe_dots.restype = i
-    f = ctypes.c_float
-    lib.dabjax_demod_guard_corr.argtypes = [vp, i, ll, i, i, i, i, i, f, vp,
-                                            vp, vp, vp]
-    lib.dabjax_demod_guard_corr.restype = i
-    lib.dabjax_demod_mix_windows.argtypes = [vp, i, ll, i, i, i, i, f, vp,
-                                             vp, vp]
-    lib.dabjax_demod_mix_windows.restype = i
-    lib.dabjax_demod_dqpsk_soft.argtypes = [vp, vp, i, i, i, i, i, i, f, vp,
-                                            vp, ll, vp, ll, vp]
-    lib.dabjax_demod_dqpsk_soft.restype = i
-    lib.dabjax_msc_front.argtypes = [vp, vp, i, i, i, ll, vp, i, vp, vp, i,
-                                     i, i, i, vp, vp]
-    lib.dabjax_msc_front.restype = i
-    return lib
+    return ctypes.CDLL(str(out))
+
+
+def _entry(name: str, argtypes: Sequence):
+    """The library's C entry ``name``, declared on its first use:
+    ``argtypes``, then the stream, returning a CUDA error code."""
+    fn = getattr(load_library(), name)
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(key: str, entries: Mapping[str, Sequence], name: str,
+           device: torch.device, *args) -> None:
+    """Call the C entry ``name`` on ``args`` and the current stream of
+    ``device``, with ``device`` entered; ``entries`` is the calling
+    module's ``ENTRIES``.  Counts one launch under ``key`` in
+    :data:`LAUNCHES`, whatever the return code, and raises
+    ``RuntimeError`` on a non-zero one."""
+    fn = _entry(name, entries[name])
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[key] += 1
+    if rc:
+        raise RuntimeError(f"{key} launch ({name}) failed: CUDA error {rc}")

@@ -50,8 +50,9 @@
 //     TPU's normal inputs.  vit_dotshapes.step_tiles() is the thread ->
 //     (rows, columns) map.  The depth loop is unrolled whole, so a K 80
 //     step at 9 columns is 5760 FFMA of code (about 92 KB): it runs 2.1x
-//     slower than the same loop unrolled 16 at a time (dot_variants'
-//     k_unroll_16), which the SASS count of one step would no longer see.
+//     slower than the same loop unrolled 16 at a time (a variant timed
+//     on the card, PERF_HISTORY.md), which the SASS count of one step
+//     would no longer see.
 //   D2 dot_steps_bf16 (probe, bf16, dot): the step loop as a GEMM K-loop,
 //     sum_t S @ X_t = [S ... S] @ X.view(16 steps, LB), whose f32
 //     accumulators stay in registers from the first step to the last (no
@@ -145,7 +146,7 @@ constexpr int kStepThreads = 32 * kStepWarps;
 constexpr int kWideCols = 9;        // D1: columns of a warp above 4 warps an SM
 constexpr int kMaxStaticSmem = 48 * 1024;
 // D1: steps of X in a warp's ring: 3 at one column a warp, 2 at kWideCols
-// (there 2 ran faster than 3: tools/dot_variants.py)
+// (there 2 ran faster than 3: PERF_HISTORY.md)
 template <int kC>
 constexpr int kXStages = kC == 1 ? 3 : 2;
 

@@ -195,7 +195,7 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 //  * Input by cp.async into a ring of kPlStages tiles in shared memory
 //    (16-byte copies, zero-filled past Tp2), kPlStages - 1 tiles ahead
 //    of the steps, so the next tile is in flight while a tile runs (a
-//    ring of 3 or 4 measured no faster: plane_variants).
+//    ring of 3 or 4 measured no faster: PERF_HISTORY.md).
 //  * Output staged: each pair step's 64 bytes go into a [16, 64] tile in
 //    shared memory, stored after the tile as whole 16-byte runs with
 //    st.global.cs (the plane is written once and never read back); a
@@ -228,8 +228,8 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 //    sign patterns and one add, where a dot of 8 took 8 multiply-adds
 //    and every lane read and added the step's 16 floats.  The sums are
 //    exact on integer-valued input, as the plain version's.
-// Measured at the main-path shape (chip_smoke.py phase 10, variants by
-// tools/plane_variants.py; NVIDIA H100 80GB HBM3, 700 W): full 0.352 ms
+// Measured at the main-path shape (chip_smoke.py phase 10, variants in
+// PERF_HISTORY.md; NVIDIA H100 80GB HBM3, 700 W): full 0.352 ms
 // from 0.993, 0.276 without the byte pack; dot_only 0.269 from 0.328,
 // 1.37x its byte bound: its reads alone take 0.200 ms and its writes
 // alone 0.227, neither stream near the copy's 2.9 TB/s with one tile in
@@ -551,11 +551,10 @@ scale_copy(const float4* __restrict__ x, float4* __restrict__ o,
 // the row and blockIdx.x a 4 KB stretch of it, one 16-byte store per
 // thread by st.global.cs (streaming, evicted first), neighbouring
 // threads on neighbouring chunks; no division on the store path.  On an
-// NVIDIA H100 80GB HBM3 at 700 W (hbm_probe --variants, which keeps the
-// plain store as `earlier`): with a plain store the kernel ran 9 %
-// behind one fill_ of the plane; with .cs it is within 0.2 % of fill_
-// by device time, and 2 % behind by events, which also count the host's
-// issue of the first call through the wrapper.
+// NVIDIA H100 80GB HBM3 at 700 W (PERF_HISTORY.md): with a plain store
+// the kernel ran 9 % behind one fill_ of the plane; with .cs it is
+// within 0.2 % of fill_ by device time, and 2 % behind by events, which
+// also count the host's issue of the first call through the wrapper.
 __global__ void __launch_bounds__(256)
 decision_plane(const float* __restrict__ x, int4* __restrict__ out,
                int row_in, int row16, int c) {

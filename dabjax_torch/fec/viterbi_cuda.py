@@ -27,12 +27,14 @@ kernel), "i8mxu", "i8" and "f32" run K3 + K4 with int32 / float / float
 path metrics on an int8 / int8 / float soft stream.
 
 The wrappers take CUDA tensors only and raise on anything else, on a
-failed build and on a failed launch; there is no fallback.  Each adds one
-to its launch count where it launches its kernel.
+failed build and on a failed launch; there is no fallback.  They launch
+through ``_build.launch``, which counts K1-K4 in ``_build.LAUNCHES``
+under "k1" .. "k4".
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -43,7 +45,7 @@ from dabjax_torch.fec import conv
 
 __all__ = ["SOFT_FMT", "FORMATS", "WORD_FORMATS", "viterbi_forward_cuda", "viterbi_traceback_cuda",
            "viterbi_forward_words_cuda", "viterbi_traceback_words_cuda",
-           "step_soft", "pair_soft", "radix4_signs", "reset_launches",
+           "step_soft", "pair_soft", "radix4_signs", "ENTRIES",
            "soft_format", "pack_decisions", "unpack_decisions",
            "decision_positions", "to_int8", "TILE", "PHASES", "METRIC_LIVE",
            "METRIC_DEAD", "rotl5", "forward_sass_counts",
@@ -57,14 +59,14 @@ WORD_FORMATS = {"i8mxu": 0, "i8": 1, "f32": 2}
 #: the forward kernel of every decode on a CUDA tensor (see module doc)
 SOFT_FMT = "i8lane"
 
-#: launches of the forward ACS kernel (K1) since the last reset
-FORWARD_LAUNCHES = 0
-#: launches of the traceback kernel (K2) since the last reset
-TRACEBACK_LAUNCHES = 0
-#: launches of the radix-4 word forward kernel (K3) since the last reset
-WORDS_FORWARD_LAUNCHES = 0
-#: launches of the word traceback kernel (K4) since the last reset
-WORDS_TRACEBACK_LAUNCHES = 0
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+#: the C entries launched here: their arguments' ctypes types before the
+#: stream (``_build.launch``)
+ENTRIES = {"dabjax_viterbi_forward": (_vp, _vp, _vp, _i, _i),
+           "dabjax_viterbi_traceback": (_vp, _vp, _i, _i, _i),
+           "dabjax_viterbi_forward_words": (_vp, _vp, _vp, _vp, _vp, _i, _i,
+                                            _i),
+           "dabjax_viterbi_traceback_words": (_vp, _vp, _vp, _i, _i, _i)}
 
 _PAIRS_PER_WORD = 16
 
@@ -77,15 +79,6 @@ PHASES = 5
 #: once a tile) at METRIC_LIVE, the other start states at METRIC_DEAD
 METRIC_LIVE = 32768
 METRIC_DEAD = METRIC_LIVE - 8192
-
-
-def reset_launches() -> None:
-    global FORWARD_LAUNCHES, TRACEBACK_LAUNCHES
-    global WORDS_FORWARD_LAUNCHES, WORDS_TRACEBACK_LAUNCHES
-    FORWARD_LAUNCHES = 0
-    TRACEBACK_LAUNCHES = 0
-    WORDS_FORWARD_LAUNCHES = 0
-    WORDS_TRACEBACK_LAUNCHES = 0
 
 
 def soft_format() -> str:
@@ -186,14 +179,8 @@ def _require(t: torch.Tensor, dtype: torch.dtype, ndim: int, name: str):
                          f" got {t.dtype} {tuple(t.shape)}")
 
 
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
 def viterbi_forward_cuda(soft: torch.Tensor) -> torch.Tensor:
     """K1: ``soft`` int8 [B, T, 4] -> decision words int32 [B, T, 2]."""
-    global FORWARD_LAUNCHES
     _require(soft, torch.int8, 3, "viterbi_forward_cuda")
     B, T, k = soft.shape
     if k != 4:
@@ -201,20 +188,14 @@ def viterbi_forward_cuda(soft: torch.Tensor) -> torch.Tensor:
     dec = torch.empty((B, T, 2), dtype=torch.int32, device=soft.device)
     if B == 0 or T == 0:
         return dec
-    lib = _build.load_library()
-    signs = _signs(soft.device)
-    with torch.cuda.device(soft.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_viterbi_forward(soft.data_ptr(), signs.data_ptr(),
-                                        dec.data_ptr(), B, T, stream)
-        FORWARD_LAUNCHES += 1
-    _check(rc, "viterbi_forward_cuda")
+    _build.launch("k1", ENTRIES, "dabjax_viterbi_forward", soft.device,
+                  soft.data_ptr(), _signs(soft.device).data_ptr(),
+                  dec.data_ptr(), B, T)
     return dec
 
 
 def viterbi_traceback_cuda(dec: torch.Tensor, nbits: int) -> torch.Tensor:
     """K2: decision words int32 [B, T, 2] -> bits int32 [B, nbits]."""
-    global TRACEBACK_LAUNCHES
     _require(dec, torch.int32, 3, "viterbi_traceback_cuda")
     B, T, k = dec.shape
     if k != 2 or not 0 <= nbits <= T:
@@ -223,13 +204,8 @@ def viterbi_traceback_cuda(dec: torch.Tensor, nbits: int) -> torch.Tensor:
     bits = torch.empty((B, nbits), dtype=torch.int32, device=dec.device)
     if B == 0 or nbits == 0:
         return bits
-    lib = _build.load_library()
-    with torch.cuda.device(dec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_viterbi_traceback(dec.data_ptr(), bits.data_ptr(),
-                                          B, T, nbits, stream)
-        TRACEBACK_LAUNCHES += 1
-    _check(rc, "viterbi_traceback_cuda")
+    _build.launch("k2", ENTRIES, "dabjax_viterbi_traceback", dec.device,
+                  dec.data_ptr(), bits.data_ptr(), B, T, nbits)
     return bits
 
 
@@ -250,7 +226,6 @@ def viterbi_forward_words_cuda(x: torch.Tensor, fmt: str):
     ``words`` is a view of the kernel's [B, W, 64] output.  ``last`` is
     state 0's decision at trellis step 2(T2-1), which the traceback needs
     when the step count is odd."""
-    global WORDS_FORWARD_LAUNCHES
     variant = WORD_FORMATS.get(fmt)
     if variant is None:
         raise ValueError(f"{fmt!r} is not a word format {tuple(WORD_FORMATS)}")
@@ -264,15 +239,11 @@ def viterbi_forward_words_cuda(x: torch.Tensor, fmt: str):
     dec = torch.empty((B, W, 64), dtype=torch.int32, device=x.device)
     last = torch.empty((B,), dtype=torch.int32, device=x.device)
     if B:
-        lib = _build.load_library()
-        signs = _signs4(x.device, fmt)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.dabjax_viterbi_forward_words(
-                x.data_ptr(), signs.data_ptr(), _signs(x.device).data_ptr(),
-                dec.data_ptr(), last.data_ptr(), B, T2, variant, stream)
-            WORDS_FORWARD_LAUNCHES += 1
-        _check(rc, "viterbi_forward_words_cuda")
+        _build.launch("k3", ENTRIES, "dabjax_viterbi_forward_words",
+                      x.device, x.data_ptr(),
+                      _signs4(x.device, fmt).data_ptr(),
+                      _signs(x.device).data_ptr(), dec.data_ptr(),
+                      last.data_ptr(), B, T2, variant)
     return dec.permute(1, 2, 0), last
 
 
@@ -280,7 +251,6 @@ def viterbi_traceback_words_cuda(words: torch.Tensor, last: torch.Tensor,
                                  nbits: int) -> torch.Tensor:
     """K4: (words int32 [W, 64, B], last int32 [B]) -> bits int32
     [B, nbits]."""
-    global WORDS_TRACEBACK_LAUNCHES
     if not (words.is_cuda and last.is_cuda):
         raise ValueError(f"viterbi_traceback_words_cuda: CUDA tensors "
                          f"required, got {words.device}, {last.device}")
@@ -300,14 +270,9 @@ def viterbi_traceback_words_cuda(words: torch.Tensor, last: torch.Tensor,
     bits = torch.empty((B, nbits), dtype=torch.int32, device=words.device)
     if B == 0 or nbits == 0:
         return bits
-    lib = _build.load_library()
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_viterbi_traceback_words(
-            dec.data_ptr(), last.data_ptr(), bits.data_ptr(), B, T2, nbits,
-            stream)
-        WORDS_TRACEBACK_LAUNCHES += 1
-    _check(rc, "viterbi_traceback_words_cuda")
+    _build.launch("k4", ENTRIES, "dabjax_viterbi_traceback_words",
+                  words.device, dec.data_ptr(), last.data_ptr(),
+                  bits.data_ptr(), B, T2, nbits)
     return bits
 
 

@@ -18,10 +18,10 @@ fixes the work's shapes:
   captured (by address); other input tensors recapture, and a new key
   drops the graph.
 
-The kernel wrappers count their launches in host globals
-(:data:`LAUNCH_COUNTERS`).  A capture counts them once and launches
-nothing, and the replay that follows it launches them once; each later
-replay adds the counts its capture made.
+The kernel wrappers count their launches in ``_build.LAUNCHES``.  A
+capture counts them once and launches nothing, and the replay that
+follows it launches them once; each later replay adds the counts its
+capture made.
 
 Only CUDA tensors are captured: on any other device :meth:`BlockGraph.
 backend` is None and the callers run their eager code, untouched.
@@ -29,29 +29,14 @@ backend` is None and the callers run their eager code, untouched.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, Hashable, Optional, Sequence, Tuple
 
 import torch
 
-from dabjax_torch.fec import viterbi_cuda
-from dabjax_torch.msc import front_cuda
-from dabjax_torch.ofdm import demod_cuda
+from dabjax_torch import _build
 
-__all__ = ["BlockGraph", "CudaCapture", "LAUNCH_COUNTERS", "layout"]
-
-#: the kernel wrappers' launch counters, (module, global): a replay adds
-#: to them what its capture counted
-LAUNCH_COUNTERS = tuple(
-    [(viterbi_cuda, name) for name in
-     ("FORWARD_LAUNCHES", "TRACEBACK_LAUNCHES", "WORDS_FORWARD_LAUNCHES",
-      "WORDS_TRACEBACK_LAUNCHES")]
-    + [(demod_cuda, name) for name in
-       ("GUARD_LAUNCHES", "MIX_LAUNCHES", "SOFT_LAUNCHES")]
-    + [(front_cuda, "FRONT_LAUNCHES")])
-
-
-def _counts() -> Tuple[int, ...]:
-    return tuple(getattr(mod, name) for mod, name in LAUNCH_COUNTERS)
+__all__ = ["BlockGraph", "CudaCapture", "layout"]
 
 
 def layout(t: torch.Tensor) -> Tuple:
@@ -118,7 +103,7 @@ class BlockGraph:
         self._inputs: Optional[Tuple[int, ...]] = None
         self._replay: Optional[Callable] = None
         self._out = None
-        self._added: Tuple[int, ...] = ()
+        self._added = Counter()
 
     def backend(self, device: torch.device):
         """What captures work on ``device``: a :class:`CudaCapture` on a
@@ -147,15 +132,13 @@ class BlockGraph:
         """The graph's outputs for this call: ``fn`` captured first if
         this is the key's second call or the inputs moved."""
         if self._replay is None:
-            before = _counts()
+            before = _build.LAUNCHES.copy()
             self._replay, self._out = self.backend(device).capture(fn,
                                                                    device)
-            self._added = tuple(a - b for a, b in zip(_counts(), before))
+            self._added = _build.LAUNCHES - before
             return self._out
         self._replay()
-        for (mod, name), n in zip(LAUNCH_COUNTERS, self._added):
-            if n:
-                setattr(mod, name, getattr(mod, name) + n)
+        _build.LAUNCHES.update(self._added)
         return self._out
 
     @property

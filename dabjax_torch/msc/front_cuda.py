@@ -21,12 +21,14 @@ numpy.  The device copy is cached per profile and device; the first call
 (a graph's eager warm-up) makes it, never a capture.
 
 The wrapper takes CUDA tensors only and raises on anything else, on a
-failed build and on a failed launch; there is no fallback.  Each launch
-adds one to :data:`FRONT_LAUNCHES`.
+failed build and on a failed launch; there is no fallback.  It launches
+through ``_build.launch``, which counts each launch in
+``_build.LAUNCHES["msc_front"]``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional, Sequence, Tuple
@@ -38,11 +40,14 @@ from dabjax_torch import _build
 from dabjax_torch.fec import puncture
 from dabjax_torch.msc.deinterleave import DELAYS, HISTORY
 
-__all__ = ["FRONT_LAUNCHES", "FrontTable", "front_table", "sources",
-           "front_np", "msc_front", "reset_launches"]
+__all__ = ["ENTRIES", "FrontTable", "front_table", "sources", "front_np",
+           "msc_front"]
 
-#: launches of the front-end kernel since the last reset
-FRONT_LAUNCHES = 0
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the C entry launched here: its arguments' ctypes types before the
+#: stream (``_build.launch``)
+ENTRIES = {"dabjax_msc_front": (_vp, _vp, _i, _i, _i, _ll, _vp, _i, _vp, _vp,
+                                _i, _i, _i, _i, _vp)}
 
 #: the kernel's threads a block and output words a thread (csrc kThreads,
 #: kWords): a chunk of the codeword has at most THREADS * WORDS words
@@ -52,11 +57,6 @@ MAX_WIDTH = 512
 #: chunk runs start and end on multiples of ALIGN columns: 16 bytes of
 #: int8, the unit of the kernel's copies
 ALIGN = 16
-
-
-def reset_launches() -> None:
-    global FRONT_LAUNCHES
-    FRONT_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,7 +186,6 @@ def msc_front(head: torch.Tensor, tail: Optional[torch.Tensor],
     [N, ...] (None: no rows), each subchannel's ``n_cols`` columns from
     column ``64 * starts[b]`` (``starts`` int64 [n] on the same card).
     Equal to ``full_rate_torch`` over the concatenated block's slices."""
-    global FRONT_LAUNCHES
     ld = _rows(head, "head")
     N = 0
     if tail is not None:
@@ -212,16 +211,10 @@ def msc_front(head: torch.Tensor, tail: Optional[torch.Tensor],
                       device=head.device)
     if n == 0 or T_out <= 0:
         return out
-    lib = _build.load_library()
-    with torch.cuda.device(head.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_msc_front(
-            head.data_ptr(), (head if tail is None else tail).data_ptr(),
-            head.dtype == torch.int8, H, N, ld, starts.data_ptr(), n,
-            chunks.data_ptr(), codes.data_ptr(), chunks.shape[0],
-            table.chunk_words, table.width, table.out_len, out.data_ptr(),
-            stream)
-        FRONT_LAUNCHES += 1
-    if rc != 0:
-        raise RuntimeError(f"msc_front launch failed: CUDA error {rc}")
+    _build.launch("msc_front", ENTRIES, "dabjax_msc_front", head.device,
+                  head.data_ptr(), (head if tail is None else tail).data_ptr(),
+                  head.dtype == torch.int8, H, N, ld, starts.data_ptr(), n,
+                  chunks.data_ptr(), codes.data_ptr(), chunks.shape[0],
+                  table.chunk_words, table.width, table.out_len,
+                  out.data_ptr())
     return out

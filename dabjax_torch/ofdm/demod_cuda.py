@@ -20,12 +20,14 @@ double, in a fixed order.  :mod:`dabjax_torch.ofdm.demod` chains the
 three around the FFT.
 
 The wrappers take CUDA tensors only and raise on anything else, on a
-failed build and on a failed launch; there is no fallback.  Each adds
-one to its launch count where it launches its kernel.
+failed build and on a failed launch; there is no fallback.  They launch
+through ``_build.launch``, which counts each kernel in
+``_build.LAUNCHES`` under its own name.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional, Tuple
@@ -37,21 +39,18 @@ from dabjax_torch.constants import DabParams
 # demod imports this module too; only its functions are read, at call time
 from dabjax_torch.ofdm import demod, tables
 
-__all__ = ["guard_corr", "mix_windows", "dqpsk_soft", "reset_launches"]
+__all__ = ["ENTRIES", "guard_corr", "mix_windows", "dqpsk_soft"]
 
-#: launches of guard_corr since the last reset
-GUARD_LAUNCHES = 0
-#: launches of mix_windows since the last reset
-MIX_LAUNCHES = 0
-#: launches of dqpsk_soft since the last reset
-SOFT_LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global GUARD_LAUNCHES, MIX_LAUNCHES, SOFT_LAUNCHES
-    GUARD_LAUNCHES = 0
-    MIX_LAUNCHES = 0
-    SOFT_LAUNCHES = 0
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_f = ctypes.c_float
+#: the C entries launched here: their arguments' ctypes types before the
+#: stream (``_build.launch``)
+ENTRIES = {"dabjax_demod_guard_corr": (_vp, _i, _ll, _i, _i, _i, _i, _i, _f,
+                                       _vp, _vp, _vp),
+           "dabjax_demod_mix_windows": (_vp, _i, _ll, _i, _i, _i, _i, _f,
+                                        _vp, _vp),
+           "dabjax_demod_dqpsk_soft": (_vp, _vp, _i, _i, _i, _i, _i, _i, _f,
+                                       _vp, _vp, _ll, _vp, _ll)}
 
 
 def _cuda_rows(rows: torch.Tensor, p: DabParams, kind: str) -> int:
@@ -72,11 +71,6 @@ def _cfo_like(cfo: torch.Tensor, rows: torch.Tensor, name: str) -> None:
                          f"{tuple(cfo.shape)} on {cfo.device}")
 
 
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
 @functools.lru_cache(maxsize=None)
 def _bins(mode: int, T_u: int, K: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tables.carrier_bins(mode, T_u, K)).to(device)
@@ -93,23 +87,17 @@ def guard_corr(rows: torch.Tensor, p: DabParams, kind: str,
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(fine [F], cfo [F])`` float32 Hz: the fine CFO of each frame, and
     ``fine + coarse_hz`` (None without ``coarse_hz``)."""
-    global GUARD_LAUNCHES
     stride = _cuda_rows(rows, p, kind)
     F = rows.shape[0]
     if coarse_hz is not None:
         _cfo_like(coarse_hz, rows, "guard_corr coarse_hz")
     fine = torch.empty(F, dtype=torch.float32, device=rows.device)
     cfo = None if coarse_hz is None else torch.empty_like(fine)
-    lib = _build.load_library()
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_demod_guard_corr(
-            rows.data_ptr(), kind == "u8", stride, F, p.T_s, p.T_u, p.T_g,
-            p.L, p.carrier_diff / 2.0,
-            None if coarse_hz is None else coarse_hz.data_ptr(),
-            fine.data_ptr(), None if cfo is None else cfo.data_ptr(), stream)
-        GUARD_LAUNCHES += 1
-    _check(rc, "guard_corr")
+    _build.launch("guard_corr", ENTRIES, "dabjax_demod_guard_corr",
+                  rows.device, rows.data_ptr(), kind == "u8", stride, F,
+                  p.T_s, p.T_u, p.T_g, p.L, p.carrier_diff / 2.0,
+                  None if coarse_hz is None else coarse_hz.data_ptr(),
+                  fine.data_ptr(), None if cfo is None else cfo.data_ptr())
     return fine, cfo
 
 
@@ -117,20 +105,14 @@ def mix_windows(rows: torch.Tensor, cfo: torch.Tensor, p: DabParams,
                 kind: str, fs: float) -> torch.Tensor:
     """complex64 [F, L, T_u]: symbol l's window ``x[l T_s : l T_s + T_u]``
     times the frame's ramp ``e^{-j 2 pi cfo t / fs}``."""
-    global MIX_LAUNCHES
     stride = _cuda_rows(rows, p, kind)
     _cfo_like(cfo, rows, "mix_windows cfo")
     F = rows.shape[0]
     out = torch.empty((F, p.L, p.T_u), dtype=torch.complex64,
                       device=rows.device)
-    lib = _build.load_library()
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_demod_mix_windows(
-            rows.data_ptr(), kind == "u8", stride, F, p.T_s, p.T_u, p.L,
-            _w(fs), cfo.data_ptr(), out.data_ptr(), stream)
-        MIX_LAUNCHES += 1
-    _check(rc, "mix_windows")
+    _build.launch("mix_windows", ENTRIES, "dabjax_demod_mix_windows",
+                  rows.device, rows.data_ptr(), kind == "u8", stride, F,
+                  p.T_s, p.T_u, p.L, _w(fs), cfo.data_ptr(), out.data_ptr())
     return out
 
 
@@ -142,7 +124,6 @@ def dqpsk_soft(spec: torch.Tensor, cfo: torch.Tensor, p: DabParams,
     [F, fic_symbols, 2K], the others into ``msc_out``
     [F, L-1-fic_symbols, 2K]; each view's symbols contiguous, its frames
     at any stride."""
-    global SOFT_LAUNCHES
     F, n_sym = spec.shape[0], 2 * p.K
     if (not spec.is_cuda or spec.dtype != torch.complex64
             or tuple(spec.shape) != (F, p.L, p.T_u)
@@ -159,13 +140,9 @@ def dqpsk_soft(spec: torch.Tensor, cfo: torch.Tensor, p: DabParams,
                              f"with contiguous symbols on {spec.device}, got "
                              f"{t.dtype} {tuple(t.shape)} strides "
                              f"{t.stride()} on {t.device}")
-    lib = _build.load_library()
-    with torch.cuda.device(spec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_demod_dqpsk_soft(
-            spec.data_ptr(), _bins(p.mode, p.T_u, p.K, spec.device).data_ptr(),
-            F, p.T_s, p.T_u, p.L, p.K, p.fic_symbols, _w(fs), cfo.data_ptr(),
-            fic_out.data_ptr(), fic_out.stride(0), msc_out.data_ptr(),
-            msc_out.stride(0), stream)
-        SOFT_LAUNCHES += 1
-    _check(rc, "dqpsk_soft")
+    _build.launch("dqpsk_soft", ENTRIES, "dabjax_demod_dqpsk_soft",
+                  spec.device, spec.data_ptr(),
+                  _bins(p.mode, p.T_u, p.K, spec.device).data_ptr(), F,
+                  p.T_s, p.T_u, p.L, p.K, p.fic_symbols, _w(fs),
+                  cfo.data_ptr(), fic_out.data_ptr(), fic_out.stride(0),
+                  msc_out.data_ptr(), msc_out.stride(0))

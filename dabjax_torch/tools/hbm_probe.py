@@ -25,25 +25,12 @@ and the block DMA of an input the plane kernel mostly ignores, so its
 figures do not compare with these.  Its (C, LB) block-shape sweep is a
 TPU tiling and has no counterpart here.
 
-With ``--variants`` it times the plane kernel (through its wrapper)
-instead, beside ``fill_`` and ``earlier``, the kernel with the plain
-16-byte store it had before its redesign in place of ``st.global.cs``,
-built from ``csrc/probes.cu`` by text replacement (:data:`VARIANTS`) and
-checked bit for bit against the kernel first: in turns, 9 runs of 10
-calls by events and 9 by device time (``tools.device_ms``: behind a
-device sleep, so the host's issue of the first call, longer through the
-wrapper than for ``fill_``, is left out).  Then 30 readings of the
-kernel by events, each beside the host's time to issue its 10 calls,
-the GC passes and the device mallocs meanwhile, and each followed by one
-by device time, say whether a slow reading by events is the host's.
-
-    python -m dabjax_torch.tools.hbm_probe [--variants]
+    python -m dabjax_torch.tools.hbm_probe
 """
 
 from __future__ import annotations
 
 import ctypes
-import statistics
 import sys
 
 import numpy as np
@@ -52,9 +39,9 @@ import torch
 from dabjax_torch import _build, tools
 from dabjax_torch.fec import viterbi_cuda
 
-__all__ = ["SHAPE", "ODD_STARTS", "input_block", "odd_block",
+__all__ = ["SHAPE", "ODD_STARTS", "ENTRIES", "input_block", "odd_block",
            "scale_copy_cuda", "scale_copy_torch", "decision_plane_cuda",
-           "decision_plane_torch", "VARIANTS", "reset_launches", "main"]
+           "decision_plane_torch", "main"]
 
 #: the soft-input block of the TPU probe: [steps, 16, lanes] float32
 SHAPE = (1160, 16, 4480)
@@ -65,16 +52,12 @@ PLANE_ROWS, PLANE_BLOCK = 64, 8
 ODD_STARTS = (300.0, -200.5, float("inf"), float("-inf"), float("nan"),
               127.9, -128.9, -0.7)
 
-#: launches of the copy kernel since the last reset
-COPY_LAUNCHES = 0
-#: launches of the decision-plane kernel since the last reset
-PLANE_LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global COPY_LAUNCHES, PLANE_LAUNCHES
-    COPY_LAUNCHES = 0
-    PLANE_LAUNCHES = 0
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+#: the C entries launched here: their arguments' ctypes types before the
+#: stream (``_build.launch``, which counts them as "scale_copy" and
+#: "decision_plane")
+ENTRIES = {"dabjax_probe_scale_copy": (_vp, _vp, ctypes.c_longlong),
+           "dabjax_probe_decision_plane": (_vp, _vp, _i, _i, _i, _i)}
 
 
 def input_block(shape=SHAPE, seed: int = 0) -> torch.Tensor:
@@ -104,20 +87,14 @@ def _require(x: torch.Tensor, name: str) -> None:
 def scale_copy_cuda(x: torch.Tensor) -> torch.Tensor:
     """The copy kernel: float32 [T, R, L] -> x * 1.000001f, same shape
     (a multiple of 4 elements)."""
-    global COPY_LAUNCHES
     _require(x, "scale_copy_cuda")
     if x.numel() % 4:
         raise ValueError(f"scale_copy_cuda: {x.numel()} elements, not a "
                          "multiple of 4")
     out = torch.empty_like(x)
     if x.numel():
-        lib = _build.load_library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.dabjax_probe_scale_copy(x.data_ptr(), out.data_ptr(),
-                                             x.numel() // 4, stream)
-            COPY_LAUNCHES += 1
-        viterbi_cuda._check(rc, "scale_copy_cuda")
+        _build.launch("scale_copy", ENTRIES, "dabjax_probe_scale_copy",
+                      x.device, x.data_ptr(), out.data_ptr(), x.numel() // 4)
     return out
 
 
@@ -130,7 +107,6 @@ def decision_plane_cuda(x: torch.Tensor) -> torch.Tensor:
     """The plane kernel: float32 [T, R, L] -> int8 [T, PLANE_ROWS, L]
     whose row t is the saturated int8 of x[8 * (t // 8), 0, 0] everywhere
     (8 = PLANE_BLOCK)."""
-    global PLANE_LAUNCHES
     rows, block = PLANE_ROWS, PLANE_BLOCK
     if x.dim() == 3:
         T, R, L = x.shape
@@ -143,14 +119,9 @@ def decision_plane_cuda(x: torch.Tensor) -> torch.Tensor:
     T, R, L = x.shape
     out = torch.empty((T, rows, L), dtype=torch.int8, device=x.device)
     if out.numel():
-        lib = _build.load_library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.dabjax_probe_decision_plane(
-                x.data_ptr(), out.data_ptr(), T, R * L, rows * L // 16,
-                block, stream)
-            PLANE_LAUNCHES += 1
-        viterbi_cuda._check(rc, "decision_plane_cuda")
+        _build.launch("decision_plane", ENTRIES,
+                      "dabjax_probe_decision_plane", x.device, x.data_ptr(),
+                      out.data_ptr(), T, R * L, rows * L // 16, block)
     return out
 
 
@@ -168,83 +139,9 @@ def decision_plane_torch(x: torch.Tensor) -> torch.Tensor:
     return v[:, None, None].expand(T, PLANE_ROWS, L).contiguous()
 
 
-#: name -> [(text, replacement)] applied to probes.cu: ``earlier``, the
-#: kernel's plain store before its redesign
-VARIANTS = {"earlier": [(
-    "  __stcs(out + static_cast<size_t>(t) * row16 + i, "
-    "make_int4(w, w, w, w));",
-    "  out[static_cast<size_t>(t) * row16 + i] = make_int4(w, w, w, w);")]}
-
-
-def _variants(x: torch.Tensor, plane: torch.Tensor, iv: int) -> None:
-    """--variants: each variant built and checked bit for bit against the
-    kernel on ``x`` and :func:`odd_block`, then all timed in turns; then
-    the kernel's readings by events beside the host's issue."""
-    from dabjax_torch.tools.plane_variants import build_variant
-    from dabjax_torch.tools.word_variants import variant_source
-    src = (_build.CSRC / "probes.cu").read_text()
-    jobs = {name: build_variant(f"store_{name}", variant_source(src, edits))
-            for name, edits in VARIANTS.items()}
-    fns = {"kernel": lambda: decision_plane_cuda(x),
-           "fill": lambda: plane.fill_(iv)}
-    stream = torch.cuda.current_stream().cuda_stream
-    odd = odd_block().to(x.device)
-    T, R, L = x.shape
-    for name, job in jobs.items():
-        _, err = job.communicate()
-        if job.returncode:
-            raise RuntimeError(f"nvcc store_{name} failed:\n{err[:3000]}")
-        lib = ctypes.CDLL(str(_build.BUILD / "variants"
-                              / f"plane_store_{name}.so"))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dabjax_probe_decision_plane.argtypes = [vp, vp] + [i] * 4 + [vp]
-
-        def run(a, lib=lib, name=name):
-            out = torch.empty((T, PLANE_ROWS, L), dtype=torch.int8,
-                              device=a.device)
-            rc = lib.dabjax_probe_decision_plane(
-                a.data_ptr(), out.data_ptr(), T, R * L,
-                PLANE_ROWS * L // 16, PLANE_BLOCK, stream)
-            viterbi_cuda._check(rc, f"variant {name}")
-            return out
-        for a in (x, odd):
-            if not torch.equal(run(a), decision_plane_cuda(a)):
-                raise AssertionError(f"plane variant {name} differs from "
-                                     "the kernel")
-        fns[name] = lambda run=run: run(x)
-    for timer, label in ((tools.cuda_ms, "events"),
-                         (tools.device_ms, "device time")):
-        spread = tools.interleaved_ms(fns, 9, 10, timer)
-        fill = spread["fill"]["median"]
-        for name, v in spread.items():
-            print(f"plane {name} by {label}: {v['median']:.5f} ms "
-                  f"({v['min']:.5f}-{v['max']:.5f}, median of 9 runs of 10 "
-                  f"in turns), {v['median'] / fill:.4f}x fill", flush=True)
-    readings, device = [], []
-    for _ in range(30):
-        host = {}
-        readings.append((tools.cuda_ms(fns["kernel"], 10, host), host))
-        device.append(tools.device_ms(fns["kernel"], 10))
-    ms = [r for r, _ in readings]
-    issue = [h["issue_ms"] for _, h in readings]
-    mid = statistics.median(ms)
-    slow = [(r, h) for r, h in readings if r > 1.1 * mid]
-    print(f"plane kernel, 30 readings of 10 calls, each by events then by "
-          f"device time: events median {mid:.5f} ms, max {max(ms):.5f}; "
-          f"device time median {statistics.median(device):.5f}, max "
-          f"{max(device):.5f}; the host's issue of the 10 calls median "
-          f"{statistics.median(issue):.3f} ms, its correlation with the "
-          f"events reading {statistics.correlation(issue, ms):.3f}; "
-          f"{len(slow)} events readings above 1.1x the median"
-          + "".join(f"; {r:.5f} ms: issue {h['issue_ms']:.3f} ms, "
-                    f"{h['gc']} GC passes, {h['mallocs']} device mallocs"
-                    for r, h in slow), flush=True)
-
-
 def main(argv=()) -> int:
-    argv = list(argv)
-    if argv not in ([], ["--variants"]):
-        print("usage: python -m dabjax_torch.tools.hbm_probe [--variants]",
+    if list(argv):
+        print("usage: python -m dabjax_torch.tools.hbm_probe",
               file=sys.stderr)
         return 2
     if not tools.have_card("hbm_probe"):
@@ -255,9 +152,6 @@ def main(argv=()) -> int:
     plane = torch.empty((T, PLANE_ROWS, L), dtype=torch.int8,
                         device=x.device)
     iv = int(_saturate(x[0, 0, 0]))      # read to the host once
-    if argv:
-        _variants(x, plane, iv)
-        return 0
     nplane = plane.numel()
     cases = (
         (f"torch mul f32 {n / 1e6:.0f}M elems", scale_copy_torch, 8 * n),

@@ -46,6 +46,7 @@ run it).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import sys
 
@@ -53,7 +54,6 @@ import numpy as np
 import torch
 
 from dabjax_torch import _build, tools
-from dabjax_torch.fec import viterbi_cuda
 from dabjax_torch.tools import vpu_probe
 
 __all__ = ["MODES", "DTYPES", "KS", "CASES", "LBS", "F32_TIMED",
@@ -64,7 +64,7 @@ __all__ = ["MODES", "DTYPES", "KS", "CASES", "LBS", "F32_TIMED",
            "step_tiles", "bf16_step_strips",
            "dot_steps_cuda", "dot_steps_torch", "dot_batched_cuda",
            "dot_batched_torch", "probe", "probe_batched", "probe2",
-           "sass_counts", "reset_launches", "main"]
+           "sass_counts", "ENTRIES", "main"]
 
 #: the probe's modes, in the kernel's code order
 MODES = ("dot", "repeat_add", "dot_acs")
@@ -83,8 +83,8 @@ CASES = (("loop dot f32", 16, "dot", "float32"),
          ("loop dot+acs f32", 16, "dot_acs", "float32"))
 #: the TPU probe's lane counts
 LBS = (4480, 512)
-#: the f32 step kernel's timed cases (``chip_smoke.py`` phase 10 and
-#: ``tools.dot_variants``): name, K, mode, LB; the first is the gated one
+#: the f32 step kernel's timed cases (``chip_smoke.py`` phase 10): name,
+#: K, mode, LB; the first is the gated one
 F32_TIMED = (("dot K=16", 16, "dot", 4480), ("dot K=8", 8, "dot", 4480),
              ("dot K=80", 80, "dot", 4480),
              ("repeat_add", 16, "repeat_add", 4480),
@@ -109,22 +109,14 @@ STEPS_PAST_L2 = (512, 2048)
 #: another order (FMA chains or tensor-core sums on the card, blocked
 #: products in torch)
 DOT_TOL = 1e-5
-#: launches of the step-loop kernels since the last reset: f32 (D1) and
-#: bf16 (D2)
-LAUNCHES = 0
-BF16_LAUNCHES = 0
-#: launches of the batched-product kernels since the last reset: f32
-#: (D3) and bf16 (D4)
-BATCHED_LAUNCHES = 0
-BATCHED_BF16_LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES, BF16_LAUNCHES, BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
-    LAUNCHES = 0
-    BF16_LAUNCHES = 0
-    BATCHED_LAUNCHES = 0
-    BATCHED_BF16_LAUNCHES = 0
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+#: the C entries launched here: their arguments' ctypes types before the
+#: stream (``_build.launch``, which counts the step loops as "dot_steps"
+#: (f32, D1) and "dot_steps_bf16" (D2), the batched products as
+#: "dot_batched" (f32, D3) and "dot_batched_bf16" (D4))
+ENTRIES = {"dabjax_probe_dot_steps": (_vp, _vp, _vp, _i, _i, _i, _i, _i),
+           "dabjax_probe_dot_batched": (_vp, _vp, _vp, _i, _i,
+                                        ctypes.c_longlong)}
 
 
 def steps_for(lb: int) -> tuple[int, int]:
@@ -230,7 +222,6 @@ def dot_steps_cuda(s: torch.Tensor, x: torch.Tensor,
                    mode: str = "dot") -> torch.Tensor:
     """The kernel: X.shape[0] steps of ``mode`` (see the module) from a
     zero state -> float32 [256, LB] (dot) or [64, LB]."""
-    global LAUNCHES, BF16_LAUNCHES
     dtype = _dtype(s, x, "dot_steps_cuda")
     shape = _steps_out(s, x, mode)
     steps, k, lb = x.shape
@@ -247,17 +238,10 @@ def dot_steps_cuda(s: torch.Tensor, x: torch.Tensor,
         raise ValueError("dot_steps_cuda: bf16 X must be 16-byte aligned "
                          "(its TMA tensor map)")
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_probe_dot_steps(
-            s.data_ptr(), x.data_ptr(), out.data_ptr(), MODES.index(mode),
-            list(DTYPES).index(dtype), k, steps, lb, stream)
-        if dtype == "float32":
-            LAUNCHES += 1
-        else:
-            BF16_LAUNCHES += 1
-    viterbi_cuda._check(rc, "dot_steps_cuda")
+    _build.launch("dot_steps" if dtype == "float32" else "dot_steps_bf16",
+                  ENTRIES, "dabjax_probe_dot_steps", x.device, s.data_ptr(),
+                  x.data_ptr(), out.data_ptr(), MODES.index(mode),
+                  list(DTYPES).index(dtype), k, steps, lb)
     return out
 
 
@@ -289,7 +273,6 @@ def dot_steps_torch(s: torch.Tensor, x: torch.Tensor,
 def dot_batched_cuda(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The kernel: S [256, K] @ X [K, N] -> float32 [256, N] (f32 K 8 or
     16, bf16 K 16; N a multiple of 8)."""
-    global BATCHED_LAUNCHES, BATCHED_BF16_LAUNCHES
     dtype = _dtype(s, x, "dot_batched_cuda")
     if s.dim() != 2 or s.shape[0] != ROWS or x.dim() != 2 \
             or x.shape[0] != s.shape[1]:
@@ -308,17 +291,11 @@ def dot_batched_cuda(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("dot_batched_cuda: bf16 X must be 16-byte aligned "
                          "(its TMA tensor map)")
     out = torch.empty((ROWS, n), dtype=torch.float32, device=x.device)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_probe_dot_batched(
-            s.data_ptr(), x.data_ptr(), out.data_ptr(),
-            list(DTYPES).index(dtype), k, n, stream)
-        if dtype == "float32":
-            BATCHED_LAUNCHES += 1
-        else:
-            BATCHED_BF16_LAUNCHES += 1
-    viterbi_cuda._check(rc, "dot_batched_cuda")
+    _build.launch("dot_batched" if dtype == "float32"
+                  else "dot_batched_bf16", ENTRIES,
+                  "dabjax_probe_dot_batched", x.device, s.data_ptr(),
+                  x.data_ptr(), out.data_ptr(), list(DTYPES).index(dtype),
+                  k, n)
     return out
 
 

@@ -30,6 +30,7 @@ are left out; ``vit_split`` times chunk 8 against 16.
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import numpy as np
@@ -40,24 +41,22 @@ from dabjax_torch.fec import viterbi, viterbi_cuda
 
 __all__ = ["MODES", "CHUNKS", "pair_steps", "plane_soft",
            "forward_plane_cuda", "forward_plane_torch",
-           "forward_plane_lanes_torch", "pack_words", "reset_launches",
+           "forward_plane_lanes_torch", "pack_words", "ENTRIES",
            "main"]
 
 #: the modes, in the kernel's code order
 MODES = ("full", "dot_only", "no_acs")
 #: the pair steps of a chunk the kernel is built for (Tp2 is a multiple)
 CHUNKS = (8, 16)
-#: launches of the plane forward kernel since the last reset
-LAUNCHES = 0
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+#: the C entry launched here: its arguments' ctypes types before the
+#: stream (``_build.launch``, which counts it as "forward_plane")
+ENTRIES = {"dabjax_probe_forward_plane": (_vp, _vp, _vp, _vp, _i, _i, _i,
+                                          _i, _i, _i)}
 
 _PAIRS_PER_WORD = 16
 #: pair steps whose branch metrics the plain version forms in one matmul
 _BM_CHUNK = 64
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def pair_steps(nbits: int, chunk: int = 8) -> tuple[int, int]:
@@ -117,7 +116,6 @@ def forward_plane_cuda(x: torch.Tensor, T2: int, mode: str = "full",
     only has to divide Tp2 (the padding :func:`plane_soft` gave);
     ``unroll`` unrolls the pair-step loop of a tile in ``dot_only`` and
     ``no_acs`` and changes nothing in ``full``."""
-    global LAUNCHES
     viterbi_cuda._require(x, torch.float32, 3, "forward_plane_cuda")
     _check_input(x, mode, chunk)
     if x.data_ptr() % 16:                    # the kernel copies 16 bytes
@@ -125,16 +123,12 @@ def forward_plane_cuda(x: torch.Tensor, T2: int, mode: str = "full",
     B, Tp2, K = x.shape
     plane = torch.empty((B, Tp2, 64), dtype=torch.int8, device=x.device)
     if B:
-        lib = _build.load_library()
-        signs = viterbi_cuda._signs4(x.device, "i8")
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.dabjax_probe_forward_plane(
-                x.data_ptr(), signs.data_ptr(),
-                viterbi_cuda._signs(x.device).data_ptr(), plane.data_ptr(),
-                B, Tp2, T2, MODES.index(mode), K, int(unroll), stream)
-            LAUNCHES += 1
-        viterbi_cuda._check(rc, "forward_plane_cuda")
+        _build.launch("forward_plane", ENTRIES, "dabjax_probe_forward_plane",
+                      x.device, x.data_ptr(),
+                      viterbi_cuda._signs4(x.device, "i8").data_ptr(),
+                      viterbi_cuda._signs(x.device).data_ptr(),
+                      plane.data_ptr(), B, Tp2, T2, MODES.index(mode), K,
+                      int(unroll))
     return plane.permute(1, 2, 0)
 
 

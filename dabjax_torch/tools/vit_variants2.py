@@ -30,6 +30,7 @@ coded Mb/s (4 * B * nbits / t).  The TPU probe's lane-block sweep
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import numpy as np
@@ -40,24 +41,21 @@ from dabjax_torch.fec import viterbi_cuda
 
 __all__ = ["MODES", "KERNEL_MODES", "padded_pair_soft",
            "forward_words_stage_cuda", "forward_words_stage_torch",
-           "mask_padding", "reset_launches", "main"]
+           "mask_padding", "ENTRIES", "main"]
 
 #: the stages, in the order they are added (the kernel's ``stage`` code)
 MODES = ("dot_store", "repadd", "maxtree", "full")
 #: the stages the stage-stripped kernel runs (``full`` is K3's)
 KERNEL_MODES = MODES[:3]
-#: launches of the stage-stripped forward kernel since the last reset
-#: (K3's launches in ``full`` count as K3's)
-LAUNCHES = 0
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+#: the C entry launched here: its arguments' ctypes types before the
+#: stream (``_build.launch``, which counts it as "forward_words_stage";
+#: K3's launches in ``full`` count as "k3")
+ENTRIES = {"dabjax_probe_forward_words_stage": (_vp, _vp, _vp, _i, _i, _i)}
 
 _PAIRS_PER_WORD = 16
 #: pair steps whose branch metrics are formed in one matmul
 _CHUNK = 64
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def padded_pair_soft(soft: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -84,7 +82,6 @@ def forward_words_stage_cuda(x: torch.Tensor, mode: str) -> torch.Tensor:
     [W, 64, B] of ``mode`` (a view of the kernel's [B, W, 64] output).
     ``full`` is K3 "i8" on the padded input, whose T2 is then Tp2: no
     pair step is masked."""
-    global LAUNCHES
     viterbi_cuda._require(x, torch.int8, 3, "forward_words_stage_cuda")
     _check_input(x, mode)
     if mode == "full":
@@ -95,15 +92,11 @@ def forward_words_stage_cuda(x: torch.Tensor, mode: str) -> torch.Tensor:
     dec = torch.empty((B, Tp2 // _PAIRS_PER_WORD, 64), dtype=torch.int32,
                       device=x.device)
     if B:
-        lib = _build.load_library()
-        signs = viterbi_cuda._signs4(x.device, "i8")
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.dabjax_probe_forward_words_stage(
-                x.data_ptr(), signs.data_ptr(), dec.data_ptr(), B, Tp2,
-                MODES.index(mode), stream)
-            LAUNCHES += 1
-        viterbi_cuda._check(rc, "forward_words_stage_cuda")
+        _build.launch("forward_words_stage", ENTRIES,
+                      "dabjax_probe_forward_words_stage", x.device,
+                      x.data_ptr(),
+                      viterbi_cuda._signs4(x.device, "i8").data_ptr(),
+                      dec.data_ptr(), B, Tp2, MODES.index(mode))
     return dec.permute(1, 2, 0)
 
 

@@ -35,6 +35,7 @@ sign.  The long chains are bound by the issue rate of the op's pipe.
 from __future__ import annotations
 
 import collections
+import ctypes
 import re
 import sys
 
@@ -42,11 +43,10 @@ import numpy as np
 import torch
 
 from dabjax_torch import _build, tools
-from dabjax_torch.fec import viterbi_cuda
 
 __all__ = ["DTYPES", "OPS", "CHAIN_NS", "SHAPE", "tile",
            "elementwise_chain_cuda", "elementwise_chain_torch",
-           "sass_op_counts", "per_op", "rates", "reset_launches", "main"]
+           "sass_op_counts", "per_op", "rates", "ENTRIES", "main"]
 
 #: the dtypes, in the kernel's code order
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -57,18 +57,16 @@ OPS = ("add", "max", "mix")
 CHAIN_NS = (3, 8, 64, 512, 2048)
 #: the TPU probe's tile
 SHAPE = (512, 4480)
-#: launches of the chain kernel since the last reset
-LAUNCHES = 0
+_vp, _i, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+#: the C entry launched here: its arguments' ctypes types before the
+#: stream (``_build.launch``, which counts it as "chain")
+ENTRIES = {"dabjax_probe_chain": (_vp, _vp, ctypes.c_longlong, _i, _i, _i,
+                                  _u, _u)}
 
 #: each dtype's lowest value in every lane of a 32-bit word (max's
 #: second operand: max(v, lowest) = v, and ptxas folds max(v, v) away)
 _LOWEST = {"float32": 0xFF800000, "bfloat16": 0xFF80FF80,
            "int32": 0x80000000, "int16": 0x80008000, "int8": 0x80808080}
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def tile(dtype: str, shape=SHAPE, seed: int = 0) -> torch.Tensor:
@@ -101,21 +99,16 @@ def _words(x: torch.Tensor, name: str) -> int:
 
 def elementwise_chain_cuda(x: torch.Tensor, op: str, n: int) -> torch.Tensor:
     """The kernel: ``n`` dependent ``op``s on every element of ``x``."""
-    global LAUNCHES
     dtype = _dtype_name(x, "elementwise_chain_cuda")
     words = _words(x, "elementwise_chain_cuda")
     if op not in OPS or n not in CHAIN_NS:
         raise ValueError(f"elementwise_chain_cuda: op {op!r} / n {n}: built "
                          f"for {OPS} and n in {CHAIN_NS}")
     out = torch.empty_like(x)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_probe_chain(
-            x.data_ptr(), out.data_ptr(), words, list(DTYPES).index(dtype),
-            OPS.index(op), n, _LOWEST[dtype], 0, stream)
-        LAUNCHES += 1
-    viterbi_cuda._check(rc, "elementwise_chain_cuda")
+    _build.launch("chain", ENTRIES, "dabjax_probe_chain", x.device,
+                  x.data_ptr(), out.data_ptr(), words,
+                  list(DTYPES).index(dtype), OPS.index(op), n,
+                  _LOWEST[dtype], 0)
     return out
 
 

@@ -36,6 +36,7 @@ adding the slope between 40 and 1000 dots (the device's time: 32 dots of
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import numpy as np
@@ -49,7 +50,7 @@ __all__ = ["DTYPES", "PAIR_NS", "SHAPE", "pair_tiles", "pair_chain_cuda",
            "pair_chain_torch", "sass_op_counts", "rates", "DOT_SHAPES",
            "DOT_NS", "DOT_NS_LONG", "DOT_COLS", "DOT_GROUP", "dot_inputs",
            "dots_cuda", "dots_torch", "dot_sass_counts", "dot_rates",
-           "reset_launches", "main"]
+           "ENTRIES", "main"]
 
 #: the dtypes, in the TPU probe's order
 DTYPES = ("float32", "int32", "int16", "bfloat16")
@@ -57,8 +58,6 @@ DTYPES = ("float32", "int32", "int16", "bfloat16")
 PAIR_NS = (16, 96, 512, 2048)
 #: the TPU probe's tiles
 SHAPE = (256, 4480)
-#: launches of the pair-chain kernel since the last reset
-LAUNCHES = 0
 #: the ``dot`` half's (rows of W, depth) and the TPU probe's tags
 DOT_SHAPES = ((256, 8, "bm [256,8]"), (128, 32, "blkdiag [128,32]"),
               (32, 8, "uv [32,8]"))
@@ -71,14 +70,13 @@ DOT_COLS = 4480
 #: columns whose chains a lane of the chained-dot kernel runs together,
 #: by rows of W (``csrc/dots.cu`` kG: 3 at 8 rows a lane)
 DOT_GROUP = {256: 3, 128: 1, 32: 1}
-#: launches of the chained-dot kernel since the last reset
-DOT_LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES, DOT_LAUNCHES
-    LAUNCHES = 0
-    DOT_LAUNCHES = 0
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+#: the C entries launched here: their arguments' ctypes types before the
+#: stream (``_build.launch``, which counts them as "pair_chain" and
+#: "dots_chain")
+ENTRIES = {"dabjax_probe_pair_chain": (_vp, _vp, _vp, ctypes.c_longlong, _i,
+                                       _i, ctypes.c_uint),
+           "dabjax_probe_dots": (_vp, _vp, _vp, _i, _i, _i, _i)}
 
 
 def pair_tiles(dtype: str, shape=SHAPE, seed: int = 0):
@@ -94,7 +92,6 @@ def pair_chain_cuda(x: torch.Tensor, y: torch.Tensor,
                     n: int) -> torch.Tensor:
     """The kernel: n / 2 dependent pairs (v, w) <- (max(v, w), w + max(v,
     w)) from (x, y); returns v."""
-    global LAUNCHES
     dtype = vpu_probe._dtype_name(x, "pair_chain_cuda")
     words = vpu_probe._words(x, "pair_chain_cuda")
     vpu_probe._words(y, "pair_chain_cuda")
@@ -105,14 +102,9 @@ def pair_chain_cuda(x: torch.Tensor, y: torch.Tensor,
     if n not in PAIR_NS:
         raise ValueError(f"pair_chain_cuda: n {n} not in {PAIR_NS}")
     out = torch.empty_like(x)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_probe_pair_chain(
-            x.data_ptr(), y.data_ptr(), out.data_ptr(), words,
-            list(vpu_probe.DTYPES).index(dtype), n, 0, stream)
-        LAUNCHES += 1
-    viterbi_cuda._check(rc, "pair_chain_cuda")
+    _build.launch("pair_chain", ENTRIES, "dabjax_probe_pair_chain",
+                  x.device, x.data_ptr(), y.data_ptr(), out.data_ptr(), words,
+                  list(vpu_probe.DTYPES).index(dtype), n, 0)
     return out
 
 
@@ -177,7 +169,6 @@ def _dot_shape(x: torch.Tensor, w: torch.Tensor, name: str) -> tuple:
 def dots_cuda(x: torch.Tensor, w: torch.Tensor, n_dots: int) -> torch.Tensor:
     """The kernel: ``n_dots`` chained products (see the module) -> float32
     [rows, cols]."""
-    global DOT_LAUNCHES
     rows, kdim, cols = _dot_shape(x, w, "dots_cuda")
     for t, name in ((x, "x"), (w, "w")):
         viterbi_cuda._require(t, torch.float32, 2, f"dots_cuda {name}")
@@ -188,14 +179,9 @@ def dots_cuda(x: torch.Tensor, w: torch.Tensor, n_dots: int) -> torch.Tensor:
                          f"and cols a multiple of 16; got ({rows}, {kdim}), "
                          f"{n_dots}, {cols}")
     out = torch.empty((rows, cols), dtype=torch.float32, device=x.device)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.dabjax_probe_dots(x.data_ptr(), w.data_ptr(),
-                                   out.data_ptr(), rows, kdim, n_dots, cols,
-                                   stream)
-        DOT_LAUNCHES += 1
-    viterbi_cuda._check(rc, "dots_cuda")
+    _build.launch("dots_chain", ENTRIES, "dabjax_probe_dots", x.device,
+                  x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, kdim,
+                  n_dots, cols)
     return out
 
 

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from dabjax_torch import _build
 from dabjax_torch.fec import conv, viterbi, viterbi_cuda as vc
 from dabjax_torch.fec.viterbi import viterbi_decode_np
 from dabjax_torch.tools import hbm_probe
@@ -23,6 +24,14 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+def _launched(*keys):
+    """The launches counted under ``keys`` since the registry's clear."""
+    return tuple(_build.LAUNCHES[k] for k in keys)
+
+
+DEMOD = ("guard_corr", "mix_windows", "dqpsk_soft")
 
 
 def _soft(B, nbits, seed):
@@ -445,12 +454,12 @@ def test_receiver_k1_launches_lie_in_their_spans_on_card(tmp_path):
             assert rx.step()
         assert rx.metrics.synced and len(rx._geometries()) == 3
         torch.cuda.synchronize()
-        vc.reset_launches()
+        _build.LAUNCHES.clear()
         with device_trace(str(tmp_path)) as prof:
             for _ in range(3):
                 assert rx.step()
             torch.cuda.synchronize()
-        launched = vc.FORWARD_LAUNCHES
+        launched = _build.LAUNCHES["k1"]
     finally:
         rx.close()
     with open(prof.trace_path) as f:
@@ -597,22 +606,19 @@ def test_demod_counters_show_the_kernels_on_card():
     """The block graph and the pipeline's demod go through the three
     kernels: one launch of each a call."""
     from dabjax_torch.constants import get_mode
-    from dabjax_torch.ofdm import demod_cuda
     from dabjax_torch.runtime.pipeline import frame_pipeline
     from dabjax_torch.runtime.receiver import BlockFn
 
     p = get_mode(1)
     for kind in ("u8", "f32"):
         rows = _demod_rows(p, 4, kind, seed=7)
-        demod_cuda.reset_launches()
+        _build.LAUNCHES.clear()
         BlockFn(p, kind, device=rows.device).frames(
             rows, torch.zeros(4, device=rows.device))
-        assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
-                demod_cuda.SOFT_LAUNCHES) == (1, 1, 1)
-    demod_cuda.reset_launches()
+        assert _launched(*DEMOD) == (1, 1, 1)
+    _build.LAUNCHES.clear()
     frame_pipeline(p, device=rows.device)(rows)
-    assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
-            demod_cuda.SOFT_LAUNCHES) == (1, 1, 1)
+    assert _launched(*DEMOD) == (1, 1, 1)
 
 
 @pytest.mark.cuda
@@ -632,7 +638,7 @@ def test_demod_kernels_refuse_bad_input_on_card():
         "layout": rows.transpose(1, 2).contiguous().transpose(1, 2),
         "u8 as f32": rows.to(torch.uint8),
     }
-    demod_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     for name, bad in bad_rows.items():
         with pytest.raises(ValueError):
             demod.demodulate_rows(bad, zero, p, "f32")
@@ -662,8 +668,7 @@ def test_demod_kernels_refuse_bad_input_on_card():
         with pytest.raises(ValueError):
             demod_cuda.dqpsk_soft(bad_spec, zero, p, demod.FS, bad_fic,
                                   bad_msc)
-    assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
-            demod_cuda.SOFT_LAUNCHES) == (0, 0, 0)
+    assert _launched(*DEMOD) == (0, 0, 0)
 
 
 # ------------------------------------------------------------ CUDA graphs
@@ -706,10 +711,8 @@ def test_graph_blocks_equal_eager_blocks_on_card(name):
     the eager code's counts a block, the front-end kernel's one launch a
     bucket."""
     from dabjax_torch.constants import CIF_BITS
-    from dabjax_torch.msc import front_cuda
     from dabjax_torch.msc.deinterleave import HISTORY
     from dabjax_torch.msc.subchannel import EnsembleDecoder
-    from dabjax_torch.ofdm import demod_cuda
     from dabjax_torch.runtime.receiver import BlockFn
     dev = _card()
     _, _, p, geoms, frames = _bench_loop(name)
@@ -734,14 +737,10 @@ def test_graph_blocks_equal_eager_blocks_on_card(name):
             [ref_blob] + [c.reshape(-1) for c in chain])), f"block {k}"
         assert torch.equal(want_hist, chain_hist)
         torch.cuda.synchronize()
-        vc.reset_launches()
-        demod_cuda.reset_launches()
-        front_cuda.reset_launches()
+        _build.LAUNCHES.clear()
         cifs, blob = fn.assemble([fn.frames(rows, coarse)], dev)
         merged, hist, meta = dec.fused(hist, cifs, blob)
-        counts.append((vc.FORWARD_LAUNCHES, vc.TRACEBACK_LAUNCHES,
-                       demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
-                       demod_cuda.SOFT_LAUNCHES, front_cuda.FRONT_LAUNCHES))
+        counts.append(_launched("k1", "k2", *DEMOD, "msc_front"))
         assert torch.equal(merged, want), f"block {k}"
         assert torch.equal(hist, want_hist) and meta == want_meta
     assert fn._graph.captured and dec._graph.captured
@@ -842,7 +841,6 @@ def test_msc_front_kernel_equals_the_chain_on_card(name, new):
     (``full_rate``, the entry of ``decode_subchannel``); one launch a
     bucket."""
     from dabjax_torch.constants import get_mode
-    from dabjax_torch.msc import front_cuda
     from dabjax_torch.msc.subchannel import (EnsembleDecoder, full_rate,
                                              full_rate_torch, msc_soft)
     dev = _card()
@@ -855,12 +853,12 @@ def test_msc_front_kernel_equals_the_chain_on_card(name, new):
         nbits = 24 * g.bitrate
         want = vc.step_soft(full_rate_torch(dec._slices(soft, off, geoms), g),
                             nbits).reshape(len(geoms), new, -1)
-        front_cuda.reset_launches()
+        _build.LAUNCHES.clear()
         got = dec._full_rate(hist, cifs, off, geoms)
         from_float = full_rate(dec._slices(block, off, geoms), g)
         from_int8 = full_rate(dec._slices(soft, off, geoms), g)
         torch.cuda.synchronize()
-        assert front_cuda.FRONT_LAUNCHES == 3
+        assert _build.LAUNCHES["msc_front"] == 3
         for what, t in (("block", got), ("float32 slices", from_float),
                         ("int8 slices", from_int8)):
             assert t.dtype == torch.int8 and t.is_contiguous()
@@ -877,10 +875,10 @@ def test_msc_front_refuses_bad_input_on_card():
     lengths, pis = [69, 3], [8, 7]                # EEP-A 96 kbit/s, level 3
     rows = torch.zeros((20, 4608 * 2), device=dev)
     starts = torch.tensor([0, 72], device=dev)
-    front_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     assert front_cuda.msc_front(rows, None, starts, 4608, lengths,
                                 pis).shape == (2, 5, 9240)
-    assert front_cuda.FRONT_LAUNCHES == 1
+    assert _build.LAUNCHES["msc_front"] == 1
     bad = [
         (rows.cpu(), None, starts.cpu(), 4608),
         (rows.double(), None, starts, 4608),
@@ -898,12 +896,12 @@ def test_msc_front_refuses_bad_input_on_card():
         (rows, None, starts, 4600),
         (rows, None, starts, 4616),
     ]
-    front_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     for k, (head, tail, st, n_cols) in enumerate(bad):
         with pytest.raises(ValueError):
             front_cuda.msc_front(head, tail, st, n_cols, lengths, pis)
             pytest.fail(f"case {k} did not raise")
-    assert front_cuda.FRONT_LAUNCHES == 0
+    assert _build.LAUNCHES["msc_front"] == 0
 
 
 def _live(u8, offset, dev, mesh=None):

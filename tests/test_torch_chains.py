@@ -69,7 +69,7 @@ def test_chain_matches_tpu_probe(dtype, op, n):
     got = vpu_probe.elementwise_chain_torch(x, op, n)
     assert got.dtype == vpu_probe.DTYPES[dtype] and tuple(got.shape) == SHAPE
     np.testing.assert_array_equal(_bits(got), _bits(want))
-    assert vpu_probe.LAUNCHES == 0
+    assert _build.LAUNCHES["chain"] == 0
 
 
 @pytest.mark.parametrize("n", [16, 96])
@@ -86,7 +86,7 @@ def test_pair_chain_matches_tpu_probe(dtype, n):
     got = vpu_probe2.pair_chain_torch(x, y, n)
     np.testing.assert_array_equal(_bits(got), _bits(want))
     assert got.ne(x).any()
-    assert vpu_probe2.LAUNCHES == 0
+    assert _build.LAUNCHES["pair_chain"] == 0
 
 
 def test_integer_chains_wrap():

@@ -141,7 +141,7 @@ def test_block_frames_on_cpu_as_before(golden, kind):
     output it gave before, bit for bit; its CIF block is
     ``cifs_from_soft(soft)``; the kernels' counters stay at 0."""
     from dabjax_torch.msc.cif import cifs_from_soft
-    from dabjax_torch.ofdm import demod_cuda
+    from dabjax_torch import _build
     from dabjax_torch.runtime.receiver import BlockFn
     p, iq = golden
     u0 = acq_jax.acquire(iq, p)
@@ -149,11 +149,11 @@ def test_block_frames_on_cpu_as_before(golden, kind):
     if kind == "f32":
         rows = (rows.to(torch.float32) - 128.0) / 128.0
     coarse = torch.full((2,), float(3 * p.carrier_diff))
-    demod_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     got = BlockFn(p, kind, device="cpu").frames(rows, coarse)
     want, soft = _block_frames_before(rows, coarse, p, kind)
-    assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
-            demod_cuda.SOFT_LAUNCHES) == (0, 0, 0)
+    assert [_build.LAUNCHES[k] for k in ("guard_corr", "mix_windows",
+                                         "dqpsk_soft")] == [0, 0, 0]
     assert got.keys() == want.keys()
     for name in want:
         assert torch.equal(got[name], want[name]), name
@@ -164,13 +164,13 @@ def test_block_frames_on_cpu_as_before(golden, kind):
 def test_demodulate_rows_on_cpu_is_the_plain_chain(golden):
     """``demodulate_rows`` on CPU rows of each kind is
     ``demodulate_rows_torch``: the plain chain, with no kernel counted."""
-    from dabjax_torch.ofdm import demod_cuda
+    from dabjax_torch import _build
     p, iq = golden
     u0 = acq_jax.acquire(iq, p)
     u8 = _u8_rows(iq, p, u0, 2)
     f32 = (u8.to(torch.float32) - 128.0) / 128.0
     coarse = torch.zeros(2)
-    demod_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     for kind, rows in (("u8", u8), ("f32", f32),
                        ("c64", torch.view_as_complex(f32))):
         got = demod.demodulate_rows(rows, coarse, p, kind)
@@ -179,8 +179,8 @@ def test_demodulate_rows_on_cpu_is_the_plain_chain(golden):
             assert torch.equal(g, w)
         assert got.cifs.shape == (2 * p.cifs_per_frame, 55296)
         assert got.fic.shape == (2, p.fic_symbols, 2 * p.K)
-    assert (demod_cuda.GUARD_LAUNCHES, demod_cuda.MIX_LAUNCHES,
-            demod_cuda.SOFT_LAUNCHES) == (0, 0, 0)
+    assert [_build.LAUNCHES[k] for k in ("guard_corr", "mix_windows",
+                                         "dqpsk_soft")] == [0, 0, 0]
 
 
 def test_demod_entry_checks_rows_on_cpu():

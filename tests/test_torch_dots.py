@@ -30,7 +30,6 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from dabjax_torch import _build
-from dabjax_torch.tools import dot_variants
 from dabjax_torch.tools import vit_dotshapes as vd
 from dabjax_torch.tools import vpu_probe2
 
@@ -114,7 +113,7 @@ def test_probe_matches_tpu_probe(mode, k, dtype, inputs):
     got = vd.dot_steps_torch(_port(s, dtype), _port(x, dtype), mode)
     assert tuple(got.shape) == ((256 if mode == "dot" else 64), LB)
     _compare(got[:1, :128].numpy(), want, inputs)
-    assert vd.LAUNCHES == 0
+    assert _build.LAUNCHES["dot_steps"] == 0
 
 
 @pytest.mark.parametrize("inputs", ["normal", "int"])
@@ -159,7 +158,7 @@ def test_dots_match_tpu_probe(shape, n_dots):
     got = vpu_probe2.dots_torch(torch.from_numpy(x), torch.from_numpy(w),
                                 n_dots)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert vpu_probe2.DOT_LAUNCHES == 0
+    assert _build.LAUNCHES["dots_chain"] == 0
 
 
 def test_dot_inputs_are_the_tpu_probes():
@@ -244,7 +243,6 @@ def test_probe_mains_without_a_card_fail(argv, capsys):
     assert vpu_probe2.main(argv) == 1
     if not argv:
         assert vd.main() == 1
-        assert dot_variants.main() == 1
     err = capsys.readouterr()
     assert "no CUDA card" in err.err and not err.out
 
@@ -294,47 +292,3 @@ def test_bf16_step_strips_cover_every_column_once(lb):
             4496: widths == {32, 40} and len(strips) == 132,
             512: widths == {32} and len(strips) == 16,
             16: strips == [(0, 16)]}[lb]
-
-
-def test_dot_variants_apply_to_the_kernel_source(monkeypatch):
-    """``tools.dot_variants`` edits ``csrc/dots.cu`` by text: every edit of
-    every variant is found exactly once in the source as it stands when
-    it is applied; the earlier designs come in beside the kernels and
-    the entry points call them (D2's too); ``mma_sync`` takes D2's wgmma
-    out of its step body, ``stage_16`` and ``strips_32`` change D2's
-    stage length and strip width alone; each variant names the probes it
-    changes;
-    without a card its ``main()`` says so and fails."""
-    src = (_build.CSRC / "dots.cu").read_text()
-    for name, edits in dot_variants.VARIANTS.items():
-        text = src
-        for old, new in edits:
-            assert text.count(old) == 1, (name, old[:60])
-            text = text.replace(old, new)
-        assert dot_variants.variant_source(src, edits) == text != src
-    earlier = dot_variants.variant_source(src,
-                                          dot_variants.VARIANTS["earlier"])
-    assert "launch_steps_c<kRepeatAdd" not in earlier
-    assert earlier.count("launch_dots_earlier<") == len(
-        vpu_probe2.DOT_SHAPES)
-    assert "last_error(launch_steps_bf16(" not in earlier
-    assert "last_error(launch_steps_bf16_earlier(" in earlier
-    assert earlier.count("dot_steps_bf16_earlier<<<") == 1
-    ring = dot_variants.variant_source(src,
-                                       dot_variants.VARIANTS["mma_sync"])
-    consume = ring[ring.index("void d2_consume("):
-                   ring.index("dot_steps_bf16(const")]
-    assert "wgmma" not in consume and "ldmatrix" in consume
-    assert consume.count("mma_ring(") == 1
-    for name, const in (("stage_16", "kD2Steps = 16;"),
-                        ("strips_32", "kD2Units = 4;")):
-        text = dot_variants.variant_source(src, dot_variants.VARIANTS[name])
-        lines = list(zip(src.splitlines(), text.splitlines()))
-        assert const in text and sum(x != y for x, y in lines) == 1
-    assert sorted(dot_variants.PROBES) == sorted(dot_variants.VARIANTS)
-    assert {p for ps in dot_variants.PROBES.values() for p in ps} == {
-        "D1", "D2", "D5"}
-    with pytest.raises(ValueError, match="not once"):
-        dot_variants.variant_source(src, [("no such text", "")])
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert dot_variants.main() == 1

@@ -13,6 +13,7 @@ from dabjax.fec import conv, crc as crc_np, prbs as prbs_np
 from dabjax.fec import puncture as punct_np
 from dabjax.fec.viterbi import viterbi_decode_np
 from dabjax.fec.viterbi_pallas import viterbi_decode_pallas
+from dabjax_torch import _build
 from dabjax_torch.fec import crc, prbs, puncture, viterbi, viterbi_cuda
 
 torch.set_num_threads(1)
@@ -105,13 +106,13 @@ def test_plain_viterbi_bit_exact(name):
     want = viterbi_decode_np(soft, nbits)
     pallas = np.asarray(viterbi_decode_pallas(soft, nbits, interpret=True))
     np.testing.assert_array_equal(pallas, want)
-    viterbi_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     got = viterbi.viterbi_decode(torch.from_numpy(soft), nbits)
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
     # a CPU tensor takes the plain version: no kernel launch
-    assert viterbi_cuda.FORWARD_LAUNCHES == 0
-    assert viterbi_cuda.TRACEBACK_LAUNCHES == 0
+    assert _build.LAUNCHES["k1"] == 0
+    assert _build.LAUNCHES["k2"] == 0
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -2,8 +2,8 @@
 
 A card is needed to capture, so these tests put a stand-in capture
 backend in the graphs' place: its "capture" runs the work once and keeps
-the outputs, and its replay runs the work again (launch counters left as
-they were, since a replay runs no Python wrapper) and copies the results
+the outputs, and its replay runs the work again (``_build.LAUNCHES``
+left as it was, since a replay runs no Python wrapper) and copies the results
 into the kept outputs, so that a replay overwrites the last one's
 outputs in place, as a graph does.  Through it they hold the keying,
 the recapture, each object's ownership of its graph and the launch
@@ -14,12 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from dabjax_torch import graphs
+from dabjax_torch import _build, graphs
 from dabjax_torch.constants import CIF_BITS, get_mode
-from dabjax_torch.fec import viterbi_cuda as vc
 from dabjax_torch.msc.deinterleave import HISTORY
 from dabjax_torch.msc.subchannel import EnsembleDecoder, SubchGeometry
-from dabjax_torch.ofdm import demod, demod_cuda
+from dabjax_torch.ofdm import demod
 from dabjax_torch.parallel.mesh import make_mesh
 from dabjax_torch.parallel.multihost import MultiReceiver
 from dabjax_torch.runtime.config import ReceiverConfig
@@ -57,10 +56,10 @@ class StandIn:
 
         def replay():
             self.replays += 1
-            counts = [getattr(m, n) for m, n in graphs.LAUNCH_COUNTERS]
+            counts = _build.LAUNCHES.copy()
             new = fn()
-            for (m, n), c in zip(graphs.LAUNCH_COUNTERS, counts):
-                setattr(m, n, c)
+            _build.LAUNCHES.clear()
+            _build.LAUNCHES.update(counts)
             for kept, t in zip(_tensors(out), _tensors(new)):
                 kept.copy_(t)
         return replay, out
@@ -119,15 +118,15 @@ def test_graph_takes_cpu_tensors_only_through_a_stand_in():
 
 def test_replays_add_the_launches_their_capture_counted(stand_in):
     """Five calls of work that launches K1 twice and ``mix_windows``
-    once: the counters read five calls' launches, whether a call ran
+    once: the registry reads five calls' launches, whether a call ran
     eagerly, captured or replayed."""
-    vc.reset_launches()
-    demod_cuda.reset_launches()
+    launches = _build.LAUNCHES
+    launches.clear()
     x = torch.zeros(2)
 
     def work():
-        vc.FORWARD_LAUNCHES += 2              # as the wrappers count
-        demod_cuda.MIX_LAUNCHES += 1
+        launches["k1"] += 2                   # as the wrappers count
+        launches["mix_windows"] += 1
         return x + 1
 
     g = graphs.BlockGraph()
@@ -135,11 +134,10 @@ def test_replays_add_the_launches_their_capture_counted(stand_in):
         for _ in range(5):
             _call(g, "k", (x,), work)
         assert stand_in[id(g)].replays == 3
-        assert (vc.FORWARD_LAUNCHES, demod_cuda.MIX_LAUNCHES) == (10, 5)
-        assert (vc.TRACEBACK_LAUNCHES, demod_cuda.GUARD_LAUNCHES) == (0, 0)
+        assert (launches["k1"], launches["mix_windows"]) == (10, 5)
+        assert (launches["k2"], launches["guard_corr"]) == (0, 0)
     finally:
-        vc.reset_launches()
-        demod_cuda.reset_launches()
+        launches.clear()
 
 
 # ------------------------------------------------------ BlockFn, decoder

@@ -97,16 +97,3 @@ def test_stage_model_equals_plain(nbits):
     T2 = -(-(nbits + 6) // 2)
     k3, _ = viterbi.viterbi_forward_words_torch(soft, nbits, "i8")
     assert torch.equal(vv2.mask_padding(got, T2), k3)
-
-
-def test_plane_variants_apply_to_the_kernel_source(monkeypatch):
-    """``tools.plane_variants`` edits ``csrc/probes.cu`` by text: every
-    variant's texts are found in the source as it is, and without a card
-    its ``main()`` says so and fails."""
-    from dabjax_torch import _build
-    from dabjax_torch.tools import plane_variants as pv
-    src = (_build.CSRC / "probes.cu").read_text()
-    for edits in pv.VARIANTS.values():
-        assert pv.variant_source(src, edits) != src
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert pv.main() == 1

@@ -27,7 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import dabjax.fec.viterbi_pallas as vp
 from dabjax.fec import conv
-from dabjax_torch import tools
+from dabjax_torch import _build, tools
 from dabjax_torch.fec import viterbi, viterbi_cuda
 from dabjax_torch.tools import (hbm_probe, vit_split, vit_split2,
                                 vit_variants, vit_variants2)
@@ -108,7 +108,8 @@ def test_stage_words_match_tpu_probe(mode, nbits):
     assert got.shape == (Tp2 // C, 64, B)
     np.testing.assert_array_equal(got, want[..., :B])
     assert got.any()
-    assert vit_variants2.LAUNCHES == 0      # CPU tensors reach no kernel
+    # CPU tensors reach no kernel
+    assert _build.LAUNCHES["forward_words_stage"] == 0
 
 
 def test_stages_differ():
@@ -220,7 +221,8 @@ def test_plane_forward_matches_tpu_probe(mode, ksplit, nbits):
     assert got.dtype == np.int8 and got.shape == (Tp2, 64, B)
     np.testing.assert_array_equal(got, want)
     assert len(np.unique(got)) > 1
-    assert vit_variants.LAUNCHES == 0       # CPU tensors reach no kernel
+    # CPU tensors reach no kernel
+    assert _build.LAUNCHES["forward_plane"] == 0
 
 
 @pytest.mark.parametrize("nbits", [100, 101])
@@ -358,23 +360,6 @@ def test_decision_plane_shape_checks():
             torch.zeros((1, 1, 1)).expand(65544, 1, 4))
     with pytest.raises(ValueError, match="CUDA"):
         hbm_probe.decision_plane_cuda(torch.zeros((65528, 1, 4)))
-
-
-def test_plane_store_variants_apply_to_the_kernel_source(monkeypatch):
-    """``hbm_probe --variants`` edits ``csrc/probes.cu`` by text: each
-    variant's texts are found once in the source as it is; a wrong
-    argument is refused and, without a card, the mode fails."""
-    from dabjax_torch import _build
-    from dabjax_torch.tools.word_variants import variant_source
-    src = (_build.CSRC / "probes.cu").read_text()
-    for edits in hbm_probe.VARIANTS.values():
-        assert all(src.count(old) == 1 for old, _ in edits)
-    earlier = variant_source(src, hbm_probe.VARIANTS["earlier"])
-    assert "__stcs(out + static_cast<size_t>(t)" not in earlier
-    assert "out[static_cast<size_t>(t) * row16 + i] =" in earlier
-    assert hbm_probe.main(["--bogus"]) == 2
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert hbm_probe.main(["--variants"]) == 1
 
 
 def test_input_block_is_int8_valued():

@@ -14,6 +14,7 @@ import torch
 import dabjax.fec.viterbi_pallas as VP
 from dabjax.fec import conv
 from dabjax.fec.viterbi import viterbi_decode_np
+from dabjax_torch import _build
 from dabjax_torch.fec import viterbi, viterbi_cuda
 
 torch.set_num_threads(1)
@@ -84,15 +85,15 @@ def test_words_match_dabjax(fmt, nbits):
     and the numpy decoder: one tile to several, odd and even nbits,
     coded, near-tie, pure-noise and saturated codewords."""
     soft = _cases(nbits, seed=nbits, saturated=True)
-    viterbi_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     words, bits = _port_words(soft, nbits, fmt)
     T2 = -(-(nbits + 6) // 2)
     assert words.shape == (-(-T2 // 16), 64, soft.shape[0])
     np.testing.assert_array_equal(words, _jax_words(soft, nbits, fmt))
     np.testing.assert_array_equal(bits, viterbi_decode_np(soft, nbits))
     # CPU tensors never reach a kernel
-    assert viterbi_cuda.WORDS_FORWARD_LAUNCHES == 0
-    assert viterbi_cuda.WORDS_TRACEBACK_LAUNCHES == 0
+    assert _build.LAUNCHES["k3"] == 0
+    assert _build.LAUNCHES["k4"] == 0
 
 
 def test_f32_does_not_saturate():
@@ -157,7 +158,7 @@ def test_cpu_dispatch_per_format(fmt, monkeypatch):
     nbits = 40
     soft = torch.from_numpy(_cases(nbits, seed=40, per_case=1))
     monkeypatch.setattr(viterbi_cuda, "SOFT_FMT", fmt)
-    viterbi_cuda.reset_launches()
+    _build.LAUNCHES.clear()
     dec, last = viterbi.viterbi_forward_words(soft, nbits)
     if fmt in viterbi_cuda.WORD_FORMATS:
         want, want_last = viterbi.viterbi_forward_words_torch(soft, nbits,
@@ -173,9 +174,7 @@ def test_cpu_dispatch_per_format(fmt, monkeypatch):
     np.testing.assert_array_equal(dec.numpy(), want.numpy())
     np.testing.assert_array_equal(viterbi.viterbi_decode(soft, nbits).numpy(),
                                   viterbi_decode_np(soft.numpy(), nbits))
-    assert (viterbi_cuda.FORWARD_LAUNCHES, viterbi_cuda.TRACEBACK_LAUNCHES,
-            viterbi_cuda.WORDS_FORWARD_LAUNCHES,
-            viterbi_cuda.WORDS_TRACEBACK_LAUNCHES) == (0, 0, 0, 0)
+    assert [_build.LAUNCHES[k] for k in ("k1", "k2", "k3", "k4")] == [0] * 4
 
 
 @pytest.mark.parametrize("fmt", viterbi_cuda.FORMATS)
@@ -217,17 +216,3 @@ def test_pair_soft_layout():
     assert not x[0, 53, 4:].any()
     xf = viterbi_cuda.pair_soft(soft, 101, "f32")
     assert xf.dtype == torch.float32 and float(xf.max()) == 4 * 107 - 201
-
-
-def test_word_variants_apply_to_the_kernel_source(monkeypatch):
-    """``tools.word_variants`` edits ``csrc/viterbi.cu`` by text: every
-    variant's texts are found in the source as it is, and without a card
-    its ``main()`` says so and fails."""
-    from dabjax_torch import _build
-    from dabjax_torch.tools import word_variants as wv
-    src = (_build.CSRC / "viterbi.cu").read_text()
-    for edits in wv.K3_VARIANTS.values():
-        assert wv.variant_source(src, edits) != src
-    assert wv._walk_shared(src) in src
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert wv.main() == 1
