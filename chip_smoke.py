@@ -141,11 +141,21 @@ non-zero exit at the first failure:
     signal: K1's int8 input equal to the plain torch chain's byte for
     byte, one launch a call; the device time of each (medians of 5 runs)
     beside the bytes' bound (0.144 ms: the float block read once, the
-    int8 stream written once).
+    int8 stream written once);
+14. MSC back end: K2's packed epilogue (``viterbi_traceback_packed_cuda``)
+    at the core cell's shape, K1's decisions of phase 13's 17280
+    codewords of 2304 bits: the dispersed logical-frame bytes equal
+    ``pack_bits_u8(prbs.disperse(K2's bits))`` byte for byte, one launch
+    a call; the device time of the packed K2, of K2 alone and of K2 and
+    the torch chain it replaces (medians of 5 runs) beside the packed
+    K2's bytes' bound (8 bytes of decisions a step read, nbits / 8
+    written).
 
 The kernels' launch counts (``_build.LAUNCHES``) are cleared just
-before phases 4-5 (K1, K2, the demod kernels and the MSC front end,
-which phase 4's batch launches once), phase 6 (K3, K4), the probes' ``main()`` runs of phase 10 (the probe
+before phases 4-5 (K1, K2, the demod kernels, the MSC front end, which
+phase 4's batch launches once, and K2's packed epilogue, which phase
+5's receiver launches a bucket a block while K2 itself decodes its FIC),
+phase 6 (K3, K4), the probes' ``main()`` runs of phase 10 (the probe
 kernels, and K3 for ``vit_split2``) and phase 11 (K1-K4; counted around
 the mesh path's own calls, not the references it is held to) and read
 just after; each kernel must have run there (the plane forward once for
@@ -1792,7 +1802,9 @@ def _mesh_receiver_checks(dev, mesh, loop_iq, path):
     captured; each runs twice, in turns (single, mesh, mesh, single), and
     the first run of each is compared, and every kernel launch of the
     first mesh run is held against its plain version.  The mesh
-    receiver's launches are added to ``path``."""
+    receiver's launches are added to ``path``; the single-device receiver
+    must launch K2's packed epilogue, the mesh receiver (the torch chain)
+    must not."""
     import numpy as np
     import torch
     from dabjax_torch import testing
@@ -1802,7 +1814,7 @@ def _mesh_receiver_checks(dev, mesh, loop_iq, path):
 
     cfg = ReceiverConfig(frames_per_block=64, decode_audio=False)
     wall = {"single": [], "mesh": []}
-    frames, calls = {}, []
+    frames, calls, packed = {}, [], {}
     for name in ("single", "mesh", "mesh", "single"):
         first = not wall[name]
         store = frames.setdefault(name, {}) if first else {}
@@ -1812,15 +1824,19 @@ def _mesh_receiver_checks(dev, mesh, loop_iq, path):
                       mesh=mesh if name == "mesh" else None, device=dev)
         try:
             torch.cuda.synchronize()
+            before = _launched("k2_packed")["k2_packed"]
             t0 = time.perf_counter()
             with _counted(path if name == "mesh" else {}), (
                     _recorded(calls) if name == "mesh" and first
                     else contextlib.nullcontext()):
                 m = rx.run(3)
             wall[name].append(time.perf_counter() - t0)
+            packed[name] = _launched("k2_packed")["k2_packed"] - before
         finally:
             rx.close()
         _check(m.fic_ratio == 1.0, f"{name} receiver: {m.dashboard()}")
+    _check(packed["single"] > 0 and packed["mesh"] == 0,
+           f"K2's packed epilogue launched {packed} (single, mesh)")
     held = _hold_plain(calls, "mesh receiver")
     n_held = len(calls)
     del calls
@@ -2130,6 +2146,66 @@ def phase_front(dev, report, golden):
     report["msc_front"] = out
 
 
+def phase_pack(dev, report, golden):
+    """Phase 14: K2's packed epilogue at the core cell's shape: K1's
+    decisions of the 12 EEP-A subchannels over phase 12's 1440 CIFs
+    (17280 codewords of 2304 bits), the dispersed logical-frame bytes
+    equal to the torch chain's (``pack_bits_u8(prbs.disperse(bits))``)
+    byte for byte, one launch a call; the device time of the packed K2,
+    of K2 alone and of K2 and the chain (medians of 5 runs) beside the
+    packed K2's bound (the decision word a step read, the bytes
+    written)."""
+    import torch
+    from dabjax_torch.fec import prbs, viterbi_cuda as vc
+    from dabjax_torch.msc.deinterleave import HISTORY
+    from dabjax_torch.msc.subchannel import EnsembleDecoder, pack_bits_u8
+    from dabjax_torch.ofdm import demod
+
+    p, F, geoms = golden["p"], DEMOD_FRAMES, list(golden["geoms"])
+    rows, _ = _demod_rows(golden, F)
+    cifs = demod.demodulate_rows(rows, torch.zeros(F, device=dev), p,
+                                 "u8").cifs
+    dec = EnsembleDecoder(geoms, p, device=dev)
+    (off, bucket), = dec._bucket_starts()
+    nbits = 24 * bucket[0].bitrate
+    full = dec._full_rate(cifs[-HISTORY:].clone(), cifs, off, bucket)
+    words = vc.viterbi_forward_cuda(vc.step_soft(full, nbits))
+    B, T, _ = words.shape
+
+    def packed():
+        return vc.viterbi_traceback_packed_cuda(words, nbits)
+
+    def k2():
+        return vc.viterbi_traceback_cuda(words, nbits)
+
+    def chain():
+        return pack_bits_u8(prbs.disperse(k2()))
+
+    _clear_launches()
+    got = packed()
+    torch.cuda.synchronize()
+    per_call = _launched("k2_packed")["k2_packed"]
+    _check(per_call == 1, f"k2_packed launches a call {per_call}")
+    _check(torch.equal(got, chain()),
+           "the packed K2 differs from K2 and the torch chain")
+    nbytes = B * T * 8 + B * nbits // 8
+    k = _median_runs(packed, reps=20)
+    bits, pl = _median_runs(k2, reps=20), _median_runs(chain, reps=5)
+    bound = _bound(nbytes, 0, "lane_op")
+    bound["x_bound"] = k["median"] / bound["bound_ms"]
+    out = {"shape": [B, nbits], "launches_a_call": per_call,
+           "max_abs_err": 0.0, "ms": k["median"], "runs_ms": k["runs_ms"],
+           "k2_ms": bits["median"], "k2_runs_ms": bits["runs_ms"],
+           "plain_ms": pl["median"], "plain_runs_ms": pl["runs_ms"],
+           "bytes": nbytes, "bound": bound}
+    print(f"k2_packed: {B} codewords of {nbits} bits to bytes equal K2 and "
+          f"the torch chain; device ms {k['median']:.4f} (K2 alone "
+          f"{bits['median']:.4f}, K2 and the chain {pl['median']:.4f}), "
+          f"bound {bound['bound_ms']:.4f} ms ({nbytes} bytes), x bound "
+          f"{bound['x_bound']:.2f}")
+    report["k2_packed"] = out
+
+
 #: the card's data-sheet rates (NVIDIA H100 SXM, dense, at 700 W): device
 #: memory; FP32 outside the tensor cores, an FMA counted as 2; one op a
 #: lane and clock (half the FP32 rate: 128 lanes x 132 SMs x 1.98 GHz, the
@@ -2245,7 +2321,7 @@ def _kernel_lines(report, launches):
     bm = chained["per_shape"]["bm [256,8]"]
     f32, bf16 = batched["float32"], batched["bfloat16"]
     dm, demod_src = report["demod"], "dabjax_torch/csrc/demod.cu"
-    fr = report["msc_front"]
+    fr, pk = report["msc_front"], report["k2_packed"]
     demod_lines = [
         # no TPU kernel: dabjax's demod is a jnp chain XLA fuses; the
         # plain time is the kernel's own step of the plain chain, on
@@ -2402,6 +2478,15 @@ def _kernel_lines(report, launches):
              fr["plain_ms"], None, fr["bound"], runs_ms=fr["runs_ms"],
              plain_runs_ms=fr["plain_runs_ms"],
              launches_a_call=fr["launches_a_call"], shape=fr["shape"]),
+        # K2's packed epilogue at the core shape; the plain time is K2
+        # and the torch chain it replaces (dispersal, shift, sum, cast)
+        line("viterbi_traceback_packed", src,
+             "dabjax/fec/viterbi_pallas.py:218, dabjax/fec/prbs.py, "
+             "the bit-pack", launches["k2_packed"], pk["max_abs_err"],
+             pk["ms"], pk["plain_ms"], None, pk["bound"],
+             runs_ms=pk["runs_ms"], plain_runs_ms=pk["plain_runs_ms"],
+             k2_ms=pk["k2_ms"], k2_runs_ms=pk["k2_runs_ms"],
+             launches_a_call=pk["launches_a_call"], shape=pk["shape"]),
     ]
 
 
@@ -2448,7 +2533,7 @@ def main() -> int:
     loop_iq = timed(phase_receiver)
     torch.cuda.synchronize()
     launches = _launched("k1", "k2", "guard_corr", "mix_windows",
-                         "dqpsk_soft", "msc_front")
+                         "dqpsk_soft", "msc_front", "k2_packed")
     _check(all(n > 0 for n in launches.values()),
            f"main path did not launch every kernel: {launches}")
     _build.LAUNCHES.clear()
@@ -2472,6 +2557,7 @@ def main() -> int:
     print(f"launches on the mesh path: {mesh_launches}")
     timed(phase_demod, golden)
     timed(phase_front, golden)
+    timed(phase_pack, golden)
 
     kernels = _kernel_lines(report, launches)
     for line, k in zip(kernels, ("k1", "k2", "k3", "k4")):
@@ -2488,7 +2574,8 @@ def main() -> int:
                       "stages": report["stages"],
                       "bank": report["bank"], "trace": report["trace"],
                       "mesh": report["mesh"], "demod": report["demod"],
-                      "msc_front": report["msc_front"]}))
+                      "msc_front": report["msc_front"],
+                      "k2_packed": report["k2_packed"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -173,6 +173,17 @@ forward_acs(const int32_t* __restrict__ soft,   // [B, T] packed int8x4
 // zero decisions keep the start state 0, so the walk needs no guard.  Rows
 // of codewords >= B are zero-filled too; bits t >= nbits and codewords >= B
 // are masked at the store.
+// The packed epilogue (kPacked, the MSC chain on the card) stores the
+// logical-frame bytes themselves in place of the bits: after a tile the
+// lane's `mask` holds its codeword's 32 bits of the tile (bit j is step
+// 32k + j), so it XORs the matching 32-bit word of the energy-dispersal
+// PRBS (`prbs`, in the same bit order), reverses the bits of each byte
+// (np.packbits order, MSB first) and lanes 0 .. 15 store the tile's 4
+// bytes into their codeword's row of [B, nbits / 8] uint8 (nbits a
+// multiple of 8; one 32-bit store when the rows are 4-byte aligned, as
+// for every DAB size, else a byte at a time), with no shuffle: 4 bytes
+// of a tile in place of 128 of int32 bits, and no pass of a bit plane
+// left for the dispersal and the pack.
 constexpr int kTbSteps = 32;                  // steps of a tile
 constexpr int kTbCw = 16;                     // codewords of a warp
 constexpr int kTbWarps = 2;                   // warps of a block
@@ -206,10 +217,12 @@ __device__ __forceinline__ void tb_issue(const uint2* __restrict__ dec,
   }
 }
 
-template <bool kVec16>
+template <bool kVec16, bool kPacked>
 __global__ void __launch_bounds__(32 * kTbWarps)
-traceback(const uint2* __restrict__ dec,  // [B, T] decision words
-          int32_t* __restrict__ bits,     // [B, nbits]
+traceback(const uint2* __restrict__ dec,      // [B, T] decision words
+          void* __restrict__ out,             // [B, nbits] int32 bits, or
+                                              // [B, nbits / 8] bytes
+          const uint32_t* __restrict__ prbs,  // [ceil(nbits / 32)] (packed)
           int B, int T, int nbits) {
   __shared__ __align__(16) char tiles[kTbWarps][kTbStages][kTbTile];
   const int lane = threadIdx.x & 31;
@@ -258,13 +271,32 @@ traceback(const uint2* __restrict__ dec,  // [B, T] decision words
         pos = (pos >> 2) | (dbit << 3) | (((pos >> 1) & 1u) << 4);
       }
     }
-    const int t = k * kTbSteps + lane;
+    if constexpr (kPacked) {
+      const int nbytes = nbits >> 3;
+      const int b0 = k * (kTbSteps / 8);      // the tile's first byte
+      if (lane < kTbCw && cw0 + lane < B && b0 < nbytes) {
+        // byte i of v is byte i of the dispersed mask, bits reversed
+        const unsigned v = __byte_perm(__brev(mask ^ prbs[k]), 0, 0x0123);
+        uint8_t* row = static_cast<uint8_t*>(out) +
+                       static_cast<size_t>(cw0 + lane) * nbytes;
+        if ((nbytes & 3) == 0 && b0 + 4 <= nbytes) {
+          *reinterpret_cast<uint32_t*>(row + b0) = v;
+        } else {
 #pragma unroll
-    for (int r = 0; r < kTbCw; ++r) {
-      const unsigned m = __shfl_sync(kFull, mask, r);
-      if (cw0 + r < B && t < nbits)
-        bits[static_cast<size_t>(cw0 + r) * nbits + t] =
-            static_cast<int32_t>((m >> lane) & 1u);
+          for (int i = 0; i < 4; ++i)
+            if (b0 + i < nbytes) row[b0 + i] = static_cast<uint8_t>(v >> 8 * i);
+        }
+      }
+    } else {
+      int32_t* bits = static_cast<int32_t*>(out);
+      const int t = k * kTbSteps + lane;
+#pragma unroll
+      for (int r = 0; r < kTbCw; ++r) {
+        const unsigned m = __shfl_sync(kFull, mask, r);
+        if (cw0 + r < B && t < nbits)
+          bits[static_cast<size_t>(cw0 + r) * nbits + t] =
+              static_cast<int32_t>((m >> lane) & 1u);
+      }
     }
   }
 }
@@ -653,6 +685,25 @@ traceback_words(const int32_t* __restrict__ dec,   // [B, W, 64]
   }
 }
 
+// K2's launch: the 16-byte copies when every row of decisions is 16-byte
+// aligned, else the 8-byte ones.
+template <bool kPacked>
+int launch_traceback(const void* dec, void* out, const void* prbs, int B,
+                     int T, int nbits, void* stream) {
+  constexpr int kPerBlock = kTbCw * kTbWarps;    // codewords of a block
+  const int blocks = (B + kPerBlock - 1) / kPerBlock;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint2* d = static_cast<const uint2*>(dec);
+  const uint32_t* p = static_cast<const uint32_t*>(prbs);
+  if (T % 2 == 0 && reinterpret_cast<uintptr_t>(dec) % 16 == 0)
+    traceback<true, kPacked><<<blocks, 32 * kTbWarps, 0, st>>>(d, out, p, B,
+                                                                T, nbits);
+  else
+    traceback<false, kPacked><<<blocks, 32 * kTbWarps, 0, st>>>(d, out, p, B,
+                                                                 T, nbits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -669,16 +720,16 @@ int dabjax_viterbi_forward(const void* soft, const void* signs, void* dec,
 
 int dabjax_viterbi_traceback(const void* dec, void* bits, int B, int T,
                              int nbits, void* stream) {
-  constexpr int kPerBlock = kTbCw * kTbWarps;    // codewords of a block
-  const int blocks = (B + kPerBlock - 1) / kPerBlock;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint2* d = static_cast<const uint2*>(dec);
-  int32_t* b = static_cast<int32_t*>(bits);
-  if (T % 2 == 0 && reinterpret_cast<uintptr_t>(dec) % 16 == 0)
-    traceback<true><<<blocks, 32 * kTbWarps, 0, st>>>(d, b, B, T, nbits);
-  else
-    traceback<false><<<blocks, 32 * kTbWarps, 0, st>>>(d, b, B, T, nbits);
-  return static_cast<int>(cudaGetLastError());
+  return launch_traceback<false>(dec, bits, nullptr, B, T, nbits, stream);
+}
+
+// `prbs`: the energy-dispersal PRBS as [ceil(nbits / 32)] words, bit j of
+// word k its bit 32k + j; `bytes`: [B, nbits / 8], nbits a multiple of 8.
+int dabjax_viterbi_traceback_packed(const void* dec, const void* prbs,
+                                    void* bytes, int B, int T, int nbits,
+                                    void* stream) {
+  if (nbits % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_traceback<true>(dec, bytes, prbs, B, T, nbits, stream);
 }
 
 // variant 0: int8 stream, int32 metrics in word 0 (i8mxu); 1: int8

@@ -4,7 +4,9 @@ The reference computes this with a 9-cell shift register seeded with all
 ones (``fic-handler.cpp:100-108``, ``dab-concurrent.cpp:183-190``).  Here the
 sequence is precomputed once per length (numpy, dabjax's :func:`prbs`) and
 applied as one XOR: on numpy bits for the transmitter, on tensors for the
-receive path (torch port of dabjax's ``disperse``).
+receive path (torch port of dabjax's ``disperse``).  :func:`words` packs it
+32 bits a word for the traceback kernel that disperses as it stores bytes
+(``viterbi_cuda.viterbi_traceback_packed_cuda``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["prbs", "disperse"]
+__all__ = ["prbs", "disperse", "words", "words_on"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -33,6 +35,24 @@ def prbs(n: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _seq(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(prbs(n), device=device).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def words(n: int) -> np.ndarray:
+    """The first ``n`` PRBS bits as uint32 [ceil(n / 32)]: bit j of word k
+    is bit 32k + j (zeros past ``n``), the order in which the traceback
+    kernel gathers a tile's decoded bits."""
+    bits = np.zeros(-(-n // 32) * 32, dtype=np.uint64)
+    bits[:n] = prbs(n)
+    return (bits.reshape(-1, 32) << np.arange(32, dtype=np.uint64)).sum(
+        axis=1).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def words_on(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`words` as int32 on ``device``, uploaded once (a CUDA graph's
+    eager first call fills the cache before its capture)."""
+    return torch.from_numpy(words(n).view(np.int32)).to(device)
 
 
 def disperse(bits, n: int | None = None):

@@ -18,7 +18,8 @@ layout's plain versions are :func:`viterbi_forward_words_torch` and
 :func:`viterbi_traceback_words_torch`.
 
 The ``*_lanes_torch`` functions model the CUDA kernels' own arithmetic
-lane by lane (K1, K2, and the word kernels K3, K4) for the tests.
+lane by lane (K1, K2 and its packed epilogue, and the word kernels K3,
+K4) for the tests.
 """
 
 from __future__ import annotations
@@ -28,14 +29,15 @@ import functools
 import numpy as np
 import torch
 
-from dabjax_torch.fec import conv, viterbi_cuda
+from dabjax_torch.fec import conv, prbs, viterbi_cuda
 
 __all__ = ["viterbi_decode", "viterbi_decode_torch", "viterbi_forward_torch",
            "viterbi_traceback_torch", "viterbi_forward_words",
            "viterbi_traceback_words", "viterbi_forward_words_torch",
            "viterbi_traceback_words_torch", "viterbi_decode_np",
            "branch_signs", "viterbi_forward_lanes_torch",
-           "viterbi_traceback_lanes_torch",
+           "viterbi_traceback_lanes_torch", "packed_epilogue_lanes_torch",
+           "viterbi_traceback_packed_lanes_torch",
            "viterbi_forward_words_lanes_torch",
            "viterbi_traceback_words_lanes_torch"]
 
@@ -268,6 +270,39 @@ def viterbi_traceback_lanes_torch(dec: torch.Tensor,
             b = i & 1
             i = (i >> 2) | (d << 3) | (((i >> 1) & 1) << 4)
     return out[:, :nbits]
+
+
+def packed_epilogue_lanes_torch(bits: torch.Tensor,
+                                nbits: int) -> torch.Tensor:
+    """K2's packed epilogue as the kernel computes it: bits int32 [B,
+    nbits] (``nbits`` a multiple of 8) -> uint8 [B, nbits / 8].  Tile k's
+    bits make the lane's ``mask`` (bit j is step 32k + j); the lane XORs
+    PRBS word k (``prbs.words``), reverses the whole word (``__brev``),
+    reverses its bytes (``__byte_perm(v, 0, 0x0123)``) and stores the 4
+    bytes little-endian.  Equals ``pack_bits_u8(prbs.disperse(bits))``."""
+    B = bits.shape[0]
+    tiles = -(-nbits // 32)
+    padded = torch.zeros((B, tiles * 32), dtype=torch.int64,
+                         device=bits.device)
+    padded[:, :nbits] = bits
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
+    mask = (padded.reshape(B, tiles, 32) << shifts).sum(dim=-1)
+    mask ^= torch.from_numpy(prbs.words(nbits).astype(np.int64)).to(
+        bits.device)
+    rev = torch.zeros_like(mask)                   # __brev
+    for j in range(32):
+        rev |= ((mask >> j) & 1) << (31 - j)
+    perm = sum(((rev >> 8 * (3 - i)) & 0xFF) << 8 * i for i in range(4))
+    out = torch.stack([(perm >> 8 * i) & 0xFF for i in range(4)], dim=-1)
+    return out.reshape(B, tiles * 4)[:, : nbits // 8].to(torch.uint8)
+
+
+def viterbi_traceback_packed_lanes_torch(dec: torch.Tensor,
+                                         nbits: int) -> torch.Tensor:
+    """K2 with its packed epilogue: :func:`viterbi_traceback_lanes_torch`
+    then :func:`packed_epilogue_lanes_torch` -> uint8 [B, nbits / 8]."""
+    return packed_epilogue_lanes_torch(
+        viterbi_traceback_lanes_torch(dec, nbits), nbits)
 
 
 def viterbi_decode_torch(soft: torch.Tensor, nbits: int) -> torch.Tensor:

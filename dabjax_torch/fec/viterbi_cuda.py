@@ -6,6 +6,10 @@
   word ``s & 1``, bit = ``s >> 1`` rotated right by ``(t % 32) % 5``);
 * traceback (K2) replaces ``_traceback_kernel`` and the unpack epilogue
   of ``viterbi_decode_pallas``: decision words -> bits int32 [B, nbits];
+  its packed epilogue (:func:`viterbi_traceback_packed_cuda`, the MSC
+  chain's on the card) stores the dispersed logical-frame bytes uint8
+  [B, nbits / 8] in their place, the result of
+  ``pack_bits_u8(prbs.disperse(bits))``;
 * radix-4 forward ACS (K3) replaces ``_forward_kernel``: pair-step soft
   [B, T2, 8] -> the radix-4 decision words of dabjax's
   ``viterbi_forward_words`` [W, 64, B] int32, plus ``last`` [B] int32;
@@ -29,7 +33,7 @@ path metrics on an int8 / int8 / float soft stream.
 The wrappers take CUDA tensors only and raise on anything else, on a
 failed build and on a failed launch; there is no fallback.  They launch
 through ``_build.launch``, which counts K1-K4 in ``_build.LAUNCHES``
-under "k1" .. "k4".
+under "k1" .. "k4", and K2's packed epilogue under "k2_packed".
 """
 
 from __future__ import annotations
@@ -41,9 +45,10 @@ import numpy as np
 import torch
 
 from dabjax_torch import _build
-from dabjax_torch.fec import conv
+from dabjax_torch.fec import conv, prbs
 
-__all__ = ["SOFT_FMT", "FORMATS", "WORD_FORMATS", "viterbi_forward_cuda", "viterbi_traceback_cuda",
+__all__ = ["SOFT_FMT", "FORMATS", "WORD_FORMATS", "viterbi_forward_cuda",
+           "viterbi_traceback_cuda", "viterbi_traceback_packed_cuda",
            "viterbi_forward_words_cuda", "viterbi_traceback_words_cuda",
            "step_soft", "pair_soft", "radix4_signs", "ENTRIES",
            "soft_format", "pack_decisions", "unpack_decisions",
@@ -64,6 +69,7 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 #: stream (``_build.launch``)
 ENTRIES = {"dabjax_viterbi_forward": (_vp, _vp, _vp, _i, _i),
            "dabjax_viterbi_traceback": (_vp, _vp, _i, _i, _i),
+           "dabjax_viterbi_traceback_packed": (_vp, _vp, _vp, _i, _i, _i),
            "dabjax_viterbi_forward_words": (_vp, _vp, _vp, _vp, _vp, _i, _i,
                                             _i),
            "dabjax_viterbi_traceback_words": (_vp, _vp, _vp, _i, _i, _i)}
@@ -207,6 +213,31 @@ def viterbi_traceback_cuda(dec: torch.Tensor, nbits: int) -> torch.Tensor:
     _build.launch("k2", ENTRIES, "dabjax_viterbi_traceback", dec.device,
                   dec.data_ptr(), bits.data_ptr(), B, T, nbits)
     return bits
+
+
+def viterbi_traceback_packed_cuda(dec: torch.Tensor,
+                                  nbits: int) -> torch.Tensor:
+    """K2 with its packed epilogue: decision words int32 [B, T, 2] ->
+    the dispersed logical-frame bytes uint8 [B, nbits / 8], equal to
+    ``pack_bits_u8(prbs.disperse(viterbi_traceback_cuda(dec, nbits)))``
+    with no bit plane in between.  ``nbits`` must be a multiple of 8 (every
+    DAB subchannel's 24 x bitrate, and the FIC's 768, are)."""
+    if nbits % 8:
+        raise ValueError(f"viterbi_traceback_packed_cuda: nbits={nbits} is "
+                         f"not a multiple of 8")
+    _require(dec, torch.int32, 3, "viterbi_traceback_packed_cuda")
+    B, T, k = dec.shape
+    if k != 2 or not 0 <= nbits <= T:
+        raise ValueError(f"viterbi_traceback_packed_cuda: bad shape "
+                         f"{tuple(dec.shape)} for nbits={nbits}")
+    out = torch.empty((B, nbits // 8), dtype=torch.uint8, device=dec.device)
+    if B == 0 or nbits == 0:
+        return out
+    _build.launch("k2_packed", ENTRIES, "dabjax_viterbi_traceback_packed",
+                  dec.device, dec.data_ptr(),
+                  prbs.words_on(nbits, dec.device).data_ptr(),
+                  out.data_ptr(), B, T, nbits)
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -152,10 +152,22 @@ def pack_bits_u8(bits: torch.Tensor) -> torch.Tensor:
     return (x << shifts).sum(dim=-1).to(torch.uint8)
 
 
-def _bucket_bytes(full: torch.Tensor, g: SubchGeometry) -> torch.Tensor:
+def _bucket_bytes(full: torch.Tensor, g: SubchGeometry,
+                  kernel: bool = False) -> torch.Tensor:
     """Full-rate soft bits [n_subch, T-15, 4*(nbits+6)] -> [n_subch,
-    T-15, 3*bitrate] bit-packed logical frames (uint8)."""
-    return pack_bits_u8(decode_full(full, g))
+    T-15, 3*bitrate] bit-packed logical frames (uint8).
+
+    With ``kernel`` (one CUDA device, no mesh) under a K1 + K2 format the
+    traceback stores the dispersed bytes itself
+    (``viterbi_cuda.viterbi_traceback_packed_cuda``); otherwise (the CPU,
+    the mesh, the word formats) torch ops disperse and pack the bits,
+    ``pack_bits_u8(decode_full(...))``: the plain version."""
+    if not kernel or viterbi_cuda.soft_format() in viterbi_cuda.WORD_FORMATS:
+        return pack_bits_u8(decode_full(full, g))
+    nbits = 24 * g.bitrate
+    dec, _ = viterbi.viterbi_forward_words(full, nbits)
+    out = viterbi_cuda.viterbi_traceback_packed_cuda(dec, nbits)
+    return out.reshape(full.shape[:-1] + (nbits // 8,))
 
 
 def _next_history(hist: torch.Tensor, cifs: torch.Tensor,
@@ -185,7 +197,10 @@ class EnsembleDecoder(nn.Module):
     reads the history and the new CIFs where they lie.  Elsewhere (the
     CPU, a mesh, "f32") it is the torch chain: the history concatenated
     with the CIFs, one gather per bucket by the start buffer, then
-    :func:`full_rate_torch`.
+    :func:`full_rate_torch`.  In :meth:`fused`, on one CUDA device under
+    a K1 + K2 format, each bucket's back end is K1 and then K2 storing
+    the dispersed logical-frame bytes itself; elsewhere (the CPU, a mesh,
+    the word formats) the bits are dispersed and packed by torch ops.
 
     With ``mesh`` set (a :class:`dabjax_torch.parallel.mesh.Mesh` whose
     home is ``device``), each bucket's subchannel axis is padded to a
@@ -339,7 +354,7 @@ class EnsembleDecoder(nn.Module):
         into ``out_hist`` (which may be ``hist``) when it is given."""
         if self._kernel(cifs.device):
             packed = [_bucket_bytes(self._full_rate(hist, cifs, off, geoms),
-                                    geoms[0])
+                                    geoms[0], kernel=True)
                       for off, geoms in self._bucket_starts()]
             new_hist = _next_history(hist, cifs, out_hist)
         else:

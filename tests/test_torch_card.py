@@ -69,6 +69,68 @@ def test_traceback_kernel_bit_exact_on_card(B, nbits):
                                       viterbi_decode_np(soft, nbits))
 
 
+def _decision_words(B, T, offset, seed, dev):
+    """Random decision words int32 [B, T, 2] on the card, ``offset`` bytes
+    (0 or 8) past a 16-byte boundary: K2 copies 16 bytes at a time from
+    16-byte aligned rows (T even), else 8."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randint(-2 ** 31, 2 ** 31 - 1, (B * T * 2 + 2,), generator=g,
+                         dtype=torch.int32, device=dev)
+    dec = flat[offset // 4: offset // 4 + B * T * 2].view(B, T, 2)
+    assert dec.data_ptr() % 16 == offset
+    return dec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [768, 1344, 1536, 1920, 2304, 3072, 4608,
+                                   9216])
+@pytest.mark.parametrize("B", [1, 31, 33, 384, 4428, 17280])
+def test_traceback_packed_kernel_equals_the_chain_on_card(B, nbits):
+    """K2's packed epilogue against K2's bits dispersed and packed by the
+    torch chain, byte for byte, through both copy paths (decisions 16-byte
+    aligned, and 8 bytes past); one launch a call."""
+    from dabjax_torch.fec import prbs
+    from dabjax_torch.msc.subchannel import pack_bits_u8
+    dev = _card()
+    for offset in (0, 8):
+        dec = _decision_words(B, nbits + 6, offset, B * 10007 + nbits, dev)
+        _build.LAUNCHES.clear()
+        got = vc.viterbi_traceback_packed_cuda(dec, nbits)
+        assert _launched("k2_packed", "k2") == (1, 0)
+        want = pack_bits_u8(prbs.disperse(vc.viterbi_traceback_cuda(dec,
+                                                                    nbits)))
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and got.shape == (B, nbits // 8)
+        assert torch.equal(got, want), offset
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [8, 104, 200, 776])
+@pytest.mark.parametrize("B", [1, 33])
+def test_traceback_packed_kernel_byte_stores_on_card(B, nbits):
+    """Where ``nbits`` is not a multiple of 32 the kernel stores the last
+    tile's bytes one at a time (and every byte where the rows are not
+    4-byte aligned): it equals the lane model of K2's walk and epilogue
+    and the chain; ``nbits`` not a multiple of 8 is refused."""
+    from dabjax_torch.fec import prbs
+    from dabjax_torch.msc.subchannel import pack_bits_u8
+    dev = _card()
+    for offset in (0, 8):
+        dec = _decision_words(B, nbits + 6, offset, nbits + offset, dev)
+        got = vc.viterbi_traceback_packed_cuda(dec, nbits)
+        assert torch.equal(got, pack_bits_u8(prbs.disperse(
+            vc.viterbi_traceback_cuda(dec, nbits))))
+        assert torch.equal(got.cpu(),
+                           viterbi.viterbi_traceback_packed_lanes_torch(
+                               dec.cpu(), nbits))
+    _build.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        vc.viterbi_traceback_packed_cuda(dec, nbits - 1)
+    with pytest.raises(ValueError):
+        vc.viterbi_traceback_packed_cuda(dec[:, :, :1].contiguous(), nbits)
+    assert _launched("k2_packed") == (0,)
+
+
 def _forward_input(kind, B, nbits):
     """int8 [B, nbits + 6, 4]: coded / near-tie / pure noise mixed, all
     of a codeword +127 or -127, or values in -1 .. 1 (ties everywhere)."""
@@ -707,9 +769,10 @@ def test_graph_blocks_equal_eager_blocks_on_card(name):
     them, the history carried: each block's merged bytes and history
     equal those of the same objects' eager code, from the first block
     (eager), the second (captured) and every replay, and the eager code's
-    equal the torch chain's (``_fused_chain``); the launch counters read
-    the eager code's counts a block, the front-end kernel's one launch a
-    bucket."""
+    equal the torch chain's (``_fused_chain``: K2's bits dispersed and
+    packed by torch ops, where the card's chain has K2 store the bytes);
+    the launch counters read the eager code's counts a block, the
+    front-end kernel's and K2's packed epilogue's one launch a bucket."""
     from dabjax_torch.constants import CIF_BITS
     from dabjax_torch.msc.deinterleave import HISTORY
     from dabjax_torch.msc.subchannel import EnsembleDecoder
@@ -740,13 +803,17 @@ def test_graph_blocks_equal_eager_blocks_on_card(name):
         _build.LAUNCHES.clear()
         cifs, blob = fn.assemble([fn.frames(rows, coarse)], dev)
         merged, hist, meta = dec.fused(hist, cifs, blob)
-        counts.append(_launched("k1", "k2", *DEMOD, "msc_front"))
+        counts.append(_launched("k1", "k2", *DEMOD, "msc_front",
+                                "k2_packed"))
         assert torch.equal(merged, want), f"block {k}"
         assert torch.equal(hist, want_hist) and meta == want_meta
     assert fn._graph.captured and dec._graph.captured
     assert hist is dec._hist
     assert counts[0][0] > 0 and counts[0][2:] == (1, 1, 1,
+                                                  len(dec._buckets),
                                                   len(dec._buckets))
+    # K1 a bucket and the FIC's; K2's bits for the FIC alone
+    assert counts[0][0] == counts[0][1] + len(dec._buckets)
     assert all(c == counts[0] for c in counts)
 
 
