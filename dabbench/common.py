@@ -10,15 +10,18 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from dabbench.gen.constants import INPUT_RATE, get_mode
 from dabbench.gen.loop import PERIOD_FRAMES, Loop
 from dabbench.reference.receiver import Reference, decode_loop
 
 __all__ = ["geometries", "LoopSource", "reference_of", "LayerContext",
-           "FRAME_S", "Recorder", "Tap", "sample_blocks", "packed", "locked",
+           "frame_s", "Recorder", "Tap", "sample_blocks", "packed", "locked",
            "check_receiver", "traced_profiler"]
 
-#: seconds of signal in one Mode I frame
-FRAME_S = 0.096
+
+def frame_s(cfg: Dict) -> float:
+    """Seconds of signal in one frame of the configuration's mode."""
+    return get_mode(cfg["mode"]).T_F / INPUT_RATE
 
 
 def geometries(cfg: Dict):

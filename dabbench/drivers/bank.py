@@ -17,8 +17,8 @@ from typing import Dict
 import torch
 
 from dabbench.check import Checks, compare_frames
-from dabbench.common import (FRAME_S, LayerContext, LoopSource, Recorder,
-                             Tap, check_receiver, locked, packed,
+from dabbench.common import (LayerContext, LoopSource, Recorder, Tap,
+                             check_receiver, frame_s, locked, packed,
                              reference_of, sample_blocks, traced_profiler)
 from dabbench.gen.loop import make_loop, rng_for, start_offset
 
@@ -103,13 +103,13 @@ class Driver:
     # ----------------------------------------------------------- results
 
     def end_to_end(self) -> Dict[str, float]:
-        return {"bank_rt": self.periods * self.n * self.F * FRAME_S
-                / self.t_window}
+        return {"bank_rt": self.periods * self.n * self.F
+                * frame_s(self.cfg) / self.t_window}
 
     def layer_context(self, trace) -> LayerContext:
         return LayerContext(
             trace=trace, blocks=self.periods * self.n, periods=self.periods,
-            signal_s=self.periods * self.n * self.F * FRAME_S,
+            signal_s=self.periods * self.n * self.F * frame_s(self.cfg),
             program_spans=self.stages, counters={}, cfg=self.cfg,
             wl=self.wl, shapes={"F": self.F, "channels": self.n})
 

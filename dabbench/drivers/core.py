@@ -12,13 +12,13 @@ window's first, and that one with the reference after the window.
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from dabbench.check import Checks, compare_taps, parse_blob
-from dabbench.common import FRAME_S, LayerContext, geometries, reference_of
+from dabbench.common import LayerContext, frame_s, geometries, reference_of
 from dabbench.gen.loop import PERIOD_FRAMES, make_loop
 
 __all__ = ["Driver"]
@@ -40,23 +40,15 @@ class Driver:
         from dabjax_torch.msc.deinterleave import HISTORY
         from dabjax_torch.msc.subchannel import EnsembleDecoder
         from dabjax_torch.ofdm.demod import min_frame_samples
-        from dabjax_torch.runtime.receiver import BlockFn
         p = self.p = get_mode(self.cfg["mode"])
-        self.loop = make_loop(self.cfg, self.seed)
-        need = min_frame_samples(p)
-        base = np.arange(PERIOD_FRAMES) * p.T_F + p.T_null + p.T_g
-        idx = torch.as_tensor(base[:, None] + np.arange(need)[None, :])
-        u8 = torch.as_tensor(self.loop.u8)[idx]          # [30, need, 2]
-        reps = self.wl["traffic"]["periods_per_block"]
-        self.rows = u8.repeat(reps, 1, 1).to(self.dev)
-        self.coarse = torch.zeros(self.F, dtype=torch.float32,
-                                  device=self.dev)
-        self.block_fn = BlockFn(p, "u8", device=self.dev)
+        self.need = min_frame_samples(p)
+        self._inputs()
         self.decoder = EnsembleDecoder(geometries(self.cfg), p,
                                        device=self.dev)
         self.hist = torch.zeros((HISTORY, CIF_BITS), dtype=torch.float32,
                                 device=self.dev)
-        self.n_fib = fic_codewords_per_frame(p) * fic_profile(p)[2]
+        self.n_fib_cw = fic_codewords_per_frame(p)
+        self.n_fib = self.n_fib_cw * fic_profile(p)[2]
         # two warm blocks: every shape built, the history primed
         for _ in range(2):
             merged, self.meta = self._block()
@@ -67,13 +59,37 @@ class Driver:
         self.events = [self._event() for _ in range(2)]
         merged.cpu()
 
+    def block_rows(self, u8: np.ndarray) -> torch.Tensor:
+        """A block's frame rows [F, need, 2] on the host: a loop's frames
+        cut from each PRS on, the loop repeated ``periods_per_block``
+        times."""
+        p = self.p
+        base = np.arange(PERIOD_FRAMES) * p.T_F + p.T_null + p.T_g
+        idx = torch.as_tensor(base[:, None] + np.arange(self.need)[None, :])
+        rows = torch.as_tensor(u8)[idx]                  # [30, need, 2]
+        return rows.repeat(self.wl["traffic"]["periods_per_block"], 1, 1)
+
+    def _inputs(self) -> None:
+        """The seed's loop, and the block graph's inputs: the block's rows
+        uploaded once, the coarse CFO, the port's ``BlockFn``."""
+        from dabjax_torch.runtime.receiver import BlockFn
+        self.loop = make_loop(self.cfg, self.seed)
+        self.rows = self.block_rows(self.loop.u8).to(self.dev)
+        self.coarse = torch.zeros(self.F, dtype=torch.float32,
+                                  device=self.dev)
+        self.block_fn = BlockFn(self.p, "u8", device=self.dev)
+
     def _event(self):
         return torch.cuda.Event() if self.dev.type == "cuda" else None
 
+    def _blockgraph(self):
+        """One block through the block graph: ``(cifs, blob)``."""
+        shard = self.block_fn.frames(self.rows, self.coarse)
+        return self.block_fn.assemble([shard], self.dev)
+
     def _block(self):
         with self.spans("blockgraph"):
-            shard = self.block_fn.frames(self.rows, self.coarse)
-            cifs, blob = self.block_fn.assemble([shard], self.dev)
+            cifs, blob = self._blockgraph()
         with self.spans("msc"):
             merged, self.hist, meta = self.decoder.fused(self.hist, cifs,
                                                          blob)
@@ -115,18 +131,19 @@ class Driver:
     # ----------------------------------------------------------- results
 
     def end_to_end(self) -> Dict[str, float]:
-        return {"ensemble_rt": self.blocks * self.F * FRAME_S
+        return {"ensemble_rt": self.blocks * self.F * frame_s(self.cfg)
                 / self.t_window}
 
     def layer_context(self, trace) -> LayerContext:
-        codewords = {"fic": (self.F * 4, 768),
-                     "msc": [(self.F * 4, 24 * s["bitrate"])
+        cifs = self.F * self.p.cifs_per_frame
+        codewords = {"fic": (self.F * self.n_fib_cw, 768),
+                     "msc": [(cifs, 24 * s["bitrate"])
                              for s in self.cfg["services"]]}
         return LayerContext(
             trace=trace, blocks=self.blocks, periods=self.blocks,
-            signal_s=self.blocks * self.F * FRAME_S, program_spans={},
-            counters={}, cfg=self.cfg, wl=self.wl,
-            shapes={"F": self.F, "need": int(self.rows.shape[1]),
+            signal_s=self.blocks * self.F * frame_s(self.cfg),
+            program_spans={}, counters={}, cfg=self.cfg, wl=self.wl,
+            shapes={"F": self.F, "need": int(self.need),
                     "T_u": self.p.T_u, "L": self.p.L, "K": self.p.K,
                     "cif_bits": 55296, "n_fib": self.n_fib,
                     "codewords": codewords})
@@ -157,10 +174,13 @@ class Driver:
         return self.blocks - self.differ if exact_bad else self.differ
 
 
-def judge(port: Dict, ref: Dict, F: int, differ: int) -> Checks:
+def judge(port: Dict, ref: Dict, F: int, differ: int,
+          checks: Optional[Checks] = None) -> Checks:
     """A core block's blob against the reference's reading of the loop:
-    frame f is loop frame f mod 30, logical frame t loop CIF t mod 120."""
-    checks = Checks()
+    frame f is loop frame f mod 30, logical frame t loop CIF t mod 120.
+    Into ``checks`` where given (counts add up, readings keep the
+    worst)."""
+    checks = Checks() if checks is None else checks
     checks.add("blocks_differ", differ)
     frames = np.arange(F) % PERIOD_FRAMES
     per_frame = {k: ref[k][frames] for k in

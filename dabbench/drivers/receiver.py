@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from dabbench.check import Checks, compare_frames
-from dabbench.common import (FRAME_S, LayerContext, LoopSource, Recorder,
-                             Tap, check_receiver, locked, packed,
+from dabbench.common import (LayerContext, LoopSource, Recorder, Tap,
+                             check_receiver, frame_s, locked, packed,
                              reference_of, sample_blocks, traced_profiler)
 from dabbench.gen.loop import make_loop, start_offset
 
@@ -111,7 +111,7 @@ class Driver:
     # ----------------------------------------------------------- results
 
     def end_to_end(self) -> Dict[str, float]:
-        signal = self.blocks * self.F * FRAME_S
+        signal = self.blocks * self.F * frame_s(self.cfg)
         return {"block_p95_ms": float(np.percentile(self.lat, 95)) * 1e3,
                 "receiver_rt": signal / self.t_window}
 
@@ -122,7 +122,7 @@ class Driver:
             counters = {k: now[k] - self.audio0[k] for k in now}
         return LayerContext(
             trace=trace, blocks=self.blocks, periods=self.blocks,
-            signal_s=self.blocks * self.F * FRAME_S,
+            signal_s=self.blocks * self.F * frame_s(self.cfg),
             program_spans=self.stages, counters=counters, cfg=self.cfg,
             wl=self.wl, shapes={"F": self.F})
 

@@ -31,9 +31,9 @@ from dabbench.gen.tx.modulator import Modulator
 
 __all__ = ["PERIOD_FRAMES", "START_FRAME", "CONFIGS", "load_config",
            "service_specs", "mp2_payload", "dabplus_payload",
-           "payload_generators", "Loop", "make_loop", "quantize_u8",
-           "u8_to_complex", "rng_for", "fib_rotation", "RotatingModulator",
-           "start_offset"]
+           "payload_generators", "Loop", "make_loop", "make_loops",
+           "quantize_u8", "u8_to_complex", "rng_for", "fib_rotation",
+           "RotatingModulator", "start_offset"]
 
 PERIOD_FRAMES = 30
 START_FRAME = 4
@@ -211,6 +211,13 @@ class Loop:
 def make_loop(cfg: Dict, seed: int, salt: int = 0) -> Loop:
     """Render the configuration's loop for ``seed`` (``salt`` gives a
     bank's further channels loops of their own)."""
+    return make_loops(cfg, seed, salt)[0]
+
+
+def make_loops(cfg: Dict, seed: int, salt: int = 0,
+               draws: int = 1) -> List[Loop]:
+    """``draws`` loops of one rendered signal: the same payloads under
+    noise draws of their own, the first of them :func:`make_loop`'s."""
     p = get_mode(cfg["mode"])
     if p.cifs_per_frame * PERIOD_FRAMES != PERIOD_CIFS:
         raise ValueError("the loop is cut for Mode I")
@@ -220,11 +227,14 @@ def make_loop(cfg: Dict, seed: int, salt: int = 0) -> Loop:
                             ensemble_label=cfg["ensemble"]["label"],
                             services=service_specs(cfg), payloads=payloads)
     x = mod.frames(PERIOD_FRAMES, start_frame=START_FRAME)
-    rng = rng_for(seed, 2, salt)
     sig_pow = float(np.mean(np.abs(x) ** 2))
     noise_pow = sig_pow / (10 ** (cfg["snr_db"] / 10))
-    noise = (rng.standard_normal(x.shape[0])
-             + 1j * rng.standard_normal(x.shape[0]))
-    x = x + (np.sqrt(noise_pow / 2) * noise).astype(np.complex64)
-    return Loop(cfg=cfg, seed=seed, u8=quantize_u8(x),
-                payloads=payloads)
+    loops = []
+    for d in range(draws):
+        rng = rng_for(seed, 2, salt, *([d] if d else []))
+        noise = (rng.standard_normal(x.shape[0])
+                 + 1j * rng.standard_normal(x.shape[0]))
+        y = x + (np.sqrt(noise_pow / 2) * noise).astype(np.complex64)
+        loops.append(Loop(cfg=cfg, seed=seed, u8=quantize_u8(y),
+                          payloads=payloads))
+    return loops

@@ -35,7 +35,7 @@ def small_workload(name: str) -> dict:
     wl = json.loads((ROOT / "dabbench" / "workloads" / f"{name}.json")
                     .read_text())
     tr = wl["traffic"]
-    if wl["driver"] == "core":
+    if wl["driver"] in ("core", "core_upload"):
         tr.update(periods_per_block=1)
     elif wl["driver"] == "bank":
         tr.update(channels=2, frames_per_block=8, max_lock_blocks=8,

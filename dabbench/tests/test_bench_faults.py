@@ -52,9 +52,26 @@ def answer_altered(monkeypatch):
     monkeypatch.setattr(subchannel, "_bucket_bytes", broken)
 
 
+def stale_upload(monkeypatch):
+    """The receiver's upload hands the block graph the rows of the first
+    block it was given, whatever rows come after."""
+    from dabjax_torch.runtime.receiver import Receiver
+    upload = Receiver._upload
+    first = {}
+
+    def broken(self, rows):
+        first.setdefault(id(self), rows.clone())
+        return upload(self, first[id(self)])
+
+    monkeypatch.setattr(Receiver, "_upload", broken)
+
+
 CASES = [(cell, fault) for cell in ("dabplus12_eep3a.core",
-                                    "mixed12_uep.live")
+                                    "mixed12_uep.live",
+                                    "dabplus12_eep3a.core_upload")
          for fault in (state_unchanged, half_batch, answer_altered)]
+CASES += [("dabplus12_eep3a.core_upload", stale_upload),
+          ("mixed12_uep.live", stale_upload)]
 CASES += [("dabplus12_eep3a.bank8", answer_altered),
           ("dabplus12_eep3a.bank8", half_batch),
           ("mixed12_uep.audio", answer_altered),
@@ -82,7 +99,8 @@ def test_fault_makes_the_run_incorrect(cell, fault, monkeypatch, capsys):
 
 @pytest.mark.parametrize("cell", ["dabplus12_eep3a.core", "mixed12_uep.live",
                                   "dabplus12_eep3a.bank8",
-                                  "mixed12_uep.audio"])
+                                  "mixed12_uep.audio",
+                                  "dabplus12_eep3a.core_upload"])
 def test_sound_run_is_correct(cell, capsys):
     out = _run(cell, capsys)
     assert out["correct"] is True, out["checks"]

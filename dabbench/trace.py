@@ -58,6 +58,12 @@ class Trace:
         t0, t1 = self.window
         return [e for e in self.device if e[2] < t1 and e[2] + e[3] > t0]
 
+    def host_to_device(self) -> List[Tuple[float, float]]:
+        """(start_us, end_us) of the window's host-to-device copies, on
+        any stream, in a graph or not."""
+        return [(e[2], e[2] + e[3]) for e in self.in_window()
+                if e[1] == "gpu_memcpy" and "HtoD" in e[0]]
+
     def busy_s(self) -> float:
         t0, t1 = self.window
         return union_seconds([(max(e[2], t0), min(e[2] + e[3], t1))
