@@ -29,6 +29,7 @@ backend` is None and the callers run their eager code, untouched.
 
 from __future__ import annotations
 
+import gc
 from collections import Counter
 from typing import Callable, Hashable, Optional, Sequence, Tuple
 
@@ -69,20 +70,31 @@ class CudaCapture:
         return out
 
     def capture(self, fn: Callable, device: torch.device):
-        """``(replay, outputs)``: ``fn`` captured, then replayed once."""
+        """``(replay, outputs)``: ``fn`` captured, then replayed once.
+
+        The garbage collector is held off while the capture runs: a
+        collection there may destroy another object's graph (a closed
+        receiver of a bank left in a reference cycle), a call that breaks
+        the capture, which then fails in whatever it launches next."""
         side, cur = self._side(device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            graph.capture_begin()
-            try:
-                out = fn()
-            except BaseException:
-                try:                 # end the broken capture, keep fn's error
-                    graph.capture_end()
-                except RuntimeError:
-                    pass
-                raise
-            graph.capture_end()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    out = fn()
+                except BaseException:
+                    try:             # end the broken capture, keep fn's error
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         cur.wait_stream(side)
         graph.replay()
         return graph.replay, out

@@ -15,6 +15,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from dabjax_torch.runtime.profiling import StageProfiler
 from dabjax_torch.runtime.receiver import Receiver
 
 __all__ = ["init_distributed", "assign_channels", "run_channels",
@@ -28,7 +29,13 @@ class MultiReceiver:
     Every channel's staged device blob (demod and FIC taps, FIB payloads,
     bit-packed MSC frames) is joined on the device and pulled at once;
     host parsing and audio then run per channel (audio on each receiver's
-    worker threads or on a shared process pool)."""
+    worker threads or on a shared process pool).
+
+    A period that stages a channel is timed by ``self.profiler`` in the
+    bank's spans of :data:`dabjax_torch.runtime.profiling.SPANS`, one of
+    each: ``bank_stage`` (items: channels staged), ``bank_pull`` (items:
+    bytes pulled) and ``bank_consume``; each channel's receiver times its
+    own spans inside them."""
 
     def __init__(self, sources: Dict[str, object], config=None,
                  data_handler_factory=None, *, device):
@@ -48,6 +55,7 @@ class MultiReceiver:
                            data_handler_factory=data_handler_factory,
                            audio_pool=self._pool, device=device)
             for name, src in sources.items()}
+        self.profiler = StageProfiler()
 
     def _pull(self, bank: torch.Tensor) -> np.ndarray:
         """The bank's one device-to-host copy of a block period."""
@@ -56,19 +64,27 @@ class MultiReceiver:
     def step(self) -> Dict[str, bool]:
         """Stage every live channel, pull the joined bank blob once, then
         consume per channel.  Returns {channel: progressed}."""
+        prof = self.profiler
         blks = {}
-        for name, rx in self.rx.items():
-            blk = rx.stage()
-            if blk is not None:
-                blks[name] = blk
+        with prof.stage("bank_stage") as span:
+            for name, rx in self.rx.items():
+                blk = rx.stage()
+                if blk is not None:
+                    blks[name] = blk
+            span.items = len(blks)
+            if not blks:
+                span.drop()
         if not blks:
             return {name: False for name in self.rx}
-        big = self._pull(torch.cat([b.merged for b in blks.values()]))
-        off = 0
-        for name, b in blks.items():
-            n = int(b.merged.shape[0])
-            self.rx[name].consume(b, big[off: off + n])
-            off += n
+        with prof.stage("bank_pull") as span:
+            big = self._pull(torch.cat([b.merged for b in blks.values()]))
+            span.items = big.nbytes
+        with prof.stage("bank_consume"):
+            off = 0
+            for name, b in blks.items():
+                n = int(b.merged.shape[0])
+                self.rx[name].consume(b, big[off: off + n])
+                off += n
         return {name: (name in blks) for name in self.rx}
 
     def run(self, n_blocks: int) -> Dict[str, object]:

@@ -3,7 +3,8 @@
 
 * :class:`StageProfiler`: cheap wall-time and throughput counters per
   span, always on; renders a text dashboard (``info --watch`` prints it).
-  The receiver's spans are named once, in :data:`SPANS`.
+  The receiver's and the channel bank's spans are named once, in
+  :data:`SPANS`.
 * :func:`device_trace` runs the body under ``torch.profiler`` and writes a
   Chrome trace (open it in Perfetto or ``chrome://tracing``); inside it
   every span also opens a ``record_function`` range of its name, on the
@@ -22,7 +23,9 @@ import torch
 
 __all__ = ["SPANS", "StageProfiler", "device_trace"]
 
-#: the receiver's spans, in the order a block opens them
+#: the receiver's spans, in the order a block opens them, then the
+#: channel bank's (``MultiReceiver``), in the order a period opens them;
+#: a bank period holds its channels' receiver spans
 SPANS = (
     "source",        # receiver: the source read into the sample buffer
     "stage_host",    # receiver: row stacking, upload and block-graph issue
@@ -31,6 +34,10 @@ SPANS = (
     "pull",          # receiver: the block's one device-to-host copy
     "consume_host",  # receiver: the pulled blob parsed, correctors, FIBs
     "route",         # host plane: frames to handlers (in consume_host)
+    "bank_stage",    # entry: every channel's stage(); items channels staged
+    "bank_pull",     # entry: the blobs joined on the device and the bank's
+                     # one device-to-host copy; items bytes pulled
+    "bank_consume",  # host plane: every channel's consume()
 )
 
 #: set while a :func:`device_trace` body runs: spans then also open a
@@ -43,6 +50,19 @@ class _Stage:
     calls: int = 0
     seconds: float = 0.0
     items: float = 0.0
+
+
+class _Open:
+    """A span while its body runs: the body may set ``items`` once it
+    knows them, or :meth:`drop` the span, which is then not counted."""
+    __slots__ = ("items", "dropped")
+
+    def __init__(self, items: float):
+        self.items = items
+        self.dropped = False
+
+    def drop(self) -> None:
+        self.dropped = True
 
 
 @dataclass
@@ -58,19 +78,21 @@ class StageProfiler:
     stages: Dict[str, _Stage] = field(default_factory=dict)
 
     @contextlib.contextmanager
-    def stage(self, name: str, items: float = 0.0) -> Iterator[None]:
+    def stage(self, name: str, items: float = 0.0) -> Iterator[_Open]:
         t0 = time.perf_counter()
+        span = _Open(items)
         try:
             if _recording:
                 with torch.profiler.record_function(name):
-                    yield
+                    yield span
             else:
-                yield
+                yield span
         finally:
-            st = self.stages.setdefault(name, _Stage())
-            st.calls += 1
-            st.seconds += time.perf_counter() - t0
-            st.items += items
+            if not span.dropped:
+                st = self.stages.setdefault(name, _Stage())
+                st.calls += 1
+                st.seconds += time.perf_counter() - t0
+                st.items += span.items
 
     def report(self, realtime_rate: float = 2_048_000.0) -> str:
         """Text dashboard; ``realtime_rate`` converts item counts that are

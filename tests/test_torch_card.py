@@ -1046,6 +1046,69 @@ def test_bank_channels_keep_their_own_bytes_on_card(monkeypatch):
             assert big[a: a + len(lone[k])].tobytes() == lone[k], (name, k)
 
 
+BANK32_WARM, BANK32_PERIODS = 40, 50
+
+
+@pytest.mark.cuda
+def test_bank_of_32_channels_on_card():
+    """A 32-channel ``MultiReceiver`` of the mixed ensemble (the live
+    monitor's bank), every channel from a loop offset of its own: once
+    every channel's block and MSC graphs are captured, each bank span
+    opens once a period and counts the channels and the joined blob's
+    bytes; in the first periods, and in the first after the capture,
+    each channel's slice of the joined blob equals its own blob pulled
+    alone; after the warm-up the device memory stays flat."""
+    from dabjax_torch.parallel.multihost import MultiReceiver
+    dev = _card()
+    _, loop, p, _, _ = _bench_loop("mixed12_uep")
+    bank = MultiReceiver({}, device=dev)
+    bank.rx = {f"ch{c}": _live(loop.u8, (c * 7 % 30) * p.T_F + 131 * c,
+                               dev)[0] for c in range(32)}
+    checked = []
+
+    def slices_of(rx):
+        consume = rx.consume
+
+        def _consume(blk, big):
+            if check:
+                assert big.tobytes() == blk.merged.cpu().numpy().tobytes()
+                checked.append(len(big))
+            return consume(blk, big)
+
+        return _consume
+
+    for rx in bank.rx.values():
+        rx.consume = slices_of(rx)
+    try:
+        for k in range(BANK32_WARM):
+            check = k < 3
+            assert all(bank.step().values())
+        assert all(rx._block_fn._graph.captured and rx._decoder._graph.captured
+                   for rx in bank.rx.values())
+        bank.profiler.stages.clear()
+        torch.cuda.synchronize(dev)
+        allocated = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in range(BANK32_PERIODS):
+            check = k < 3
+            assert all(bank.step().values())
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.memory_allocated(dev) == allocated
+        peak = torch.cuda.max_memory_allocated(dev) - allocated
+        st = bank.profiler.stages
+        assert {n: st[n].calls for n in st} == {
+            "bank_stage": BANK32_PERIODS, "bank_pull": BANK32_PERIODS,
+            "bank_consume": BANK32_PERIODS}
+        assert st["bank_stage"].items == 32 * BANK32_PERIODS
+        # the joined blob of a captured period: 32 blobs of one layout
+        assert st["bank_pull"].items == BANK32_PERIODS * 32 * checked[-1]
+        assert len(checked) == 6 * 32
+        print(f"bank32: {allocated} bytes allocated, peak +{peak}, "
+              f"{checked[-1]} bytes a channel a period")
+    finally:
+        bank.close()
+
+
 @pytest.mark.cuda
 def test_mesh_receiver_equals_single_device_on_card():
     """``mesh=make_mesh(2)`` of the one card (both positions on it) runs

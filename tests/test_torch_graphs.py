@@ -116,6 +116,48 @@ def test_graph_takes_cpu_tensors_only_through_a_stand_in():
                       graphs.CudaCapture)
 
 
+@pytest.mark.parametrize("fails", [False, True], ids=["sound", "raises"])
+def test_capture_holds_off_the_garbage_collector(fails, monkeypatch):
+    """No collection runs inside a capture (one there may destroy another
+    object's graph, which breaks the capture), and the collector is as
+    it was after it, whether the captured work returns or raises."""
+    import contextlib
+    import gc
+
+    class Fake:
+        def __init__(self, *args):
+            pass
+
+        def wait_stream(self, *other):
+            pass
+
+        capture_begin = capture_end = replay = wait_stream
+
+    for name in ("CUDAGraph", "Stream"):
+        monkeypatch.setattr(torch.cuda, name, Fake)
+    monkeypatch.setattr(torch.cuda, "current_stream", Fake)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    seen = []
+
+    def work():
+        seen.append(gc.isenabled())
+        if fails:
+            raise ValueError("work")
+        return "out"
+
+    for enabled in (True, False):
+        (gc.enable if enabled else gc.disable)()
+        try:
+            with contextlib.suppress(ValueError):
+                replay, out = graphs.CudaCapture().capture(work, CPU)
+                assert out == "out"
+            assert gc.isenabled() is enabled
+        finally:
+            gc.enable()
+    assert seen == [False, False]
+
+
 def test_replays_add_the_launches_their_capture_counted(stand_in):
     """Five calls of work that launches K1 twice and ``mix_windows``
     once: the registry reads five calls' launches, whether a call ran

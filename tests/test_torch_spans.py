@@ -1,7 +1,8 @@
-"""The receiver's spans (``runtime/profiling.py`` ``SPANS``): one of each
-a block once locked, at their layers' extents, and on the profiler's
-clock under ``device_trace`` (and only there), on a port ``Receiver``
-reading the port's own modulator on the CPU."""
+"""The receiver's spans (``runtime/profiling.py`` ``SPANS``, less the
+channel bank's ``bank_*`` spans): one of each a block once locked, at
+their layers' extents, and on the profiler's clock under
+``device_trace`` (and only there), on a port ``Receiver`` reading the
+port's own modulator on the CPU."""
 
 import contextlib
 import json
@@ -17,6 +18,9 @@ from dabjax_torch.testing import LoopSource, golden_modulator
 from dabjax_torch.tx.fig import ServiceSpec
 
 torch.set_num_threads(1)
+
+#: the receiver's spans; the rest of SPANS are the bank's
+RECEIVER = tuple(n for n in SPANS if not n.startswith("bank_"))
 
 
 class _Count:
@@ -83,16 +87,19 @@ def _count(spans, name):
 
 
 def test_spans_are_named_once():
-    assert len(set(SPANS)) == len(SPANS) == 7
-    assert {"stage_host", "pull", "consume_host"} <= set(SPANS)
+    assert len(set(SPANS)) == len(SPANS) == 10
+    assert len(RECEIVER) == 7
+    assert {"stage_host", "pull", "consume_host"} <= set(RECEIVER)
+    assert set(SPANS) - set(RECEIVER) == {"bank_stage", "bank_pull",
+                                          "bank_consume"}
 
 
 def test_each_span_once_a_block(rx):
     n = 3
     _run(rx, n)
     st = rx.profiler.stages
-    assert {name: st[name].calls for name in SPANS} == \
-        {name: n for name in SPANS}
+    assert {name: st[name].calls for name in RECEIVER} == \
+        {name: n for name in RECEIVER}
     # the nested spans are parts of their parents
     assert st["blockgraph"].seconds <= st["stage_host"].seconds
     assert st["route"].seconds <= st["consume_host"].seconds
@@ -125,8 +132,8 @@ def test_device_trace_puts_spans_on_the_trace_clock(rx, tmp_path):
     assert rx._decoder is decoder
     assert not profiling._recording
     spans, ops = _annotations(prof.trace_path)
-    assert {name: _count(spans, name) for name in SPANS} == \
-        {name: n for name in SPANS}
+    assert {name: _count(spans, name) for name in RECEIVER} == \
+        {name: n for name in RECEIVER}
     for name, parent in (("blockgraph", "stage_host"),
                          ("route", "consume_host")):
         for s in spans:
@@ -183,15 +190,15 @@ def test_benchmark_wrapper_opens_each_span_once(rx, tmp_path):
             for _ in range(n):
                 assert rx.step()
         st = rx.profiler.stages
-        assert {name: st[name].calls for name in SPANS} == \
-            {name: n for name in SPANS}
+        assert {name: st[name].calls for name in RECEIVER} == \
+            {name: n for name in RECEIVER}
     finally:
         rx.profiler = own
     path = str(tmp_path / "harness.json")
     prof.export_chrome_trace(path)
     spans, _ = _annotations(path)
-    assert {name: _count(spans, name) for name in SPANS} == \
-        {name: n for name in SPANS}
+    assert {name: _count(spans, name) for name in RECEIVER} == \
+        {name: n for name in RECEIVER}
 
 
 def test_stage_keeps_its_signature():
@@ -206,3 +213,18 @@ def test_stage_keeps_its_signature():
     st = prof.stages["x"]
     assert (st.calls, st.items) == (3, 8.0) and st.seconds >= 0.0
     assert "x" in prof.report().splitlines()[1]
+
+
+def test_stage_takes_items_in_its_body_and_drops():
+    """A body may set its span's items once it knows them, or drop the
+    span, which is then not counted (a bank period that stages
+    nothing)."""
+    prof = StageProfiler()
+    with prof.stage("x", 2.0) as span:
+        span.items = 7.0
+    with prof.stage("x") as span:
+        span.drop()
+    with prof.stage("y") as span:
+        span.drop()
+    assert (prof.stages["x"].calls, prof.stages["x"].items) == (1, 7.0)
+    assert "y" not in prof.stages
