@@ -46,6 +46,7 @@ from dabjax_torch.runtime.audio_pool import COUNTER_FIELDS
 from dabjax_torch.runtime.config import ReceiverConfig
 from dabjax_torch.runtime.metrics import Metrics
 from dabjax_torch.runtime.profiling import StageProfiler
+from dabjax_torch.runtime.upload import RowsUpload
 from dabjax_torch.fic.fic_decoder import (decode_fic, fic_codewords_per_frame,
                                           fic_profile)
 from dabjax_torch.msc.deinterleave import HISTORY
@@ -344,9 +345,11 @@ class Receiver:
         self._block_fn = self._build_block_fn()
         # the block's inputs, kept from block to block (_host_rows, _upload)
         self._rows_host: Optional[torch.Tensor] = None
-        self._rows_dev: Optional[torch.Tensor] = None
+        self._rows_up = RowsUpload(self.device)
         self._coarse: Optional[torch.Tensor] = None
-        self._uploaded = None           # CUDA event after the rows' upload
+        #: uploads of host rows by path, "direct" and "staged"
+        #: (:mod:`dabjax_torch.runtime.upload`)
+        self.uploads = self._rows_up.counts
 
     def _empty_buf(self) -> np.ndarray:
         """(Re)initialize the preallocated sample buffer; ``self._buf``
@@ -452,7 +455,9 @@ class Receiver:
             fn = self._block_fn
             if self.mesh is None:
                 rows, coarse = self._upload(rows)
-                return fn.assemble([fn.frames(rows, coarse)], self.device)
+                out = fn.assemble([fn.frames(rows, coarse)], self.device)
+                self._rows_up.read()
+                return out
             shards = []
             for part, dev in zip(torch.tensor_split(rows, self.mesh.size),
                                  self.mesh.positions()):
@@ -465,9 +470,9 @@ class Receiver:
     def _upload(self, rows: torch.Tensor):
         """The host rows and the coarse CFO as tensors on this device that
         stay the same from block to block, so that the block graph finds
-        its inputs where it captured them: the rows copied by one
-        asynchronous copy (the CPU takes the host rows as they are), the
-        CFO filled in."""
+        its inputs where it captured them: the rows copied beside the
+        kernels by :class:`RowsUpload` (rows already on this device, the
+        CPU's included, are taken as they are), the CFO filled in."""
         F = rows.shape[0]
         if self._coarse is None or self._coarse.shape[0] != F:
             self._coarse = torch.empty(F, dtype=torch.float32,
@@ -475,14 +480,7 @@ class Receiver:
         self._coarse.fill_(self._coarse_hz)
         if rows.device == self._coarse.device:
             return rows, self._coarse
-        dev = self._rows_dev
-        if dev is None or dev.shape != rows.shape or dev.dtype != rows.dtype:
-            dev = self._rows_dev = torch.empty(rows.shape, dtype=rows.dtype,
-                                               device=self.device)
-            self._uploaded = torch.cuda.Event()
-        dev.copy_(rows, non_blocking=True)
-        self._uploaded.record()
-        return dev, self._coarse
+        return self._rows_up(rows), self._coarse
 
     def _host_rows(self, base: np.ndarray, need: int) -> torch.Tensor:
         """The block's frame rows [F, need, 2] (uint8 pairs, or complex64
@@ -495,8 +493,8 @@ class Receiver:
         if buf is None or tuple(buf.shape) != shape or buf.dtype != dtype:
             buf = self._rows_host = torch.empty(
                 shape, dtype=dtype, pin_memory=self.device.type == "cuda")
-        elif self._uploaded is not None:
-            self._uploaded.synchronize()
+        else:
+            self._rows_up.wait()
         out = buf.numpy()
         if not self._u8:                 # complex64 -> (re, im) pairs
             out = out.view(np.complex64)[..., 0]

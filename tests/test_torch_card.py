@@ -741,17 +741,23 @@ def _bench_loop(name, seed=2024):
     import json
     import pathlib
     from dabbench.common import geometries
-    from dabbench.gen.loop import PERIOD_FRAMES, make_loop
-    from dabjax_torch.ofdm.demod import min_frame_samples
+    from dabbench.gen.loop import make_loop
     path = pathlib.Path(__file__).resolve().parents[1] / "dabbench" \
         / "configs" / f"{name}.json"
     with open(path) as f:
         cfg = json.load(f)
     loop = make_loop(cfg, seed)
+    return cfg, loop, loop.p, geometries(cfg), _loop_rows(loop)
+
+
+def _loop_rows(loop):
+    """A loop's 30 frame rows (u8), each cut from its PRS on."""
+    from dabbench.gen.loop import PERIOD_FRAMES
+    from dabjax_torch.ofdm.demod import min_frame_samples
     p = loop.p
     base = np.arange(PERIOD_FRAMES) * p.T_F + p.T_null + p.T_g
     idx = base[:, None] + np.arange(min_frame_samples(p))[None, :]
-    return cfg, loop, p, geometries(cfg), torch.as_tensor(loop.u8[idx])
+    return torch.as_tensor(loop.u8[idx])
 
 
 def _eager(monkeypatch):
@@ -1131,3 +1137,92 @@ def test_mesh_receiver_equals_single_device_on_card():
     assert runs["single"][0]
     assert runs["single"][1].captured and runs["single"][2].captured
     assert runs["mesh"][1]._key is None and runs["mesh"][2]._key is None
+
+
+# ------------------------------------------------- the rows beside the graph
+
+UPLOAD_BLOCKS = 40
+
+
+@pytest.mark.cuda
+def test_upload_beside_the_block_graph_on_card(monkeypatch):
+    """40 blocks of the core's 360 frames through ``Receiver._block`` as
+    the archive decoder's cell drives them: two pinned host buffers (two
+    noise draws of the loop) in turn, each block issued before the one
+    before it is read.  Every block's blob equals a synchronous eager run
+    of its buffer; uploads took the staged path (the block before still
+    read the rows' buffer); the block graph was captured once, on the
+    one rows buffer."""
+    import json
+    import pathlib
+    from dabbench.gen.loop import PERIOD_FRAMES, make_loops
+    from dabjax_torch import graphs
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.runtime.config import ReceiverConfig
+    from dabjax_torch.runtime.receiver import BlockFn, Receiver
+    from dabjax_torch.testing import LoopSource
+    dev = _card()
+    path = pathlib.Path(__file__).resolve().parents[1] / "dabbench" \
+        / "configs" / "dabplus12_eep3a.json"
+    with open(path) as f:
+        cfg = json.load(f)
+    p = get_mode(cfg["mode"])
+    F = 12 * PERIOD_FRAMES
+    bufs = []
+    for loop in make_loops(cfg, 2024, draws=2):
+        rows = _loop_rows(loop).repeat(12, 1, 1)
+        bufs.append(torch.empty(rows.shape, dtype=rows.dtype,
+                                pin_memory=True).copy_(rows))
+    ref = BlockFn(p, "u8", device=dev)
+    coarse = torch.zeros(F, device=dev)
+    want = [ref._assemble([ref._frames(b.to(dev), coarse)], dev)[1].cpu()
+            for b in bufs]
+    assert not torch.equal(want[0], want[1])
+    captures = []
+    capture = graphs.CudaCapture.capture
+
+    def counted(self, fn, device):
+        captures.append(device)
+        return capture(self, fn, device)
+
+    monkeypatch.setattr(graphs.CudaCapture, "capture", counted)
+    rx = Receiver(LoopSource(np.zeros(1, np.complex64)),
+                  ReceiverConfig(mode=cfg["mode"], frames_per_block=F),
+                  device=dev)
+    pinned = [torch.empty(want[0].shape, dtype=torch.uint8, pin_memory=True)
+              for _ in range(2)]
+    events = [torch.cuda.Event() for _ in range(2)]
+
+    def issue(k):
+        _, blob = rx._block(bufs[k % 2])
+        pinned[k % 2].copy_(blob, non_blocking=True)
+        events[k % 2].record()
+
+    issue(0)
+    for k in range(UPLOAD_BLOCKS):
+        if k + 1 < UPLOAD_BLOCKS:
+            issue(k + 1)
+        events[k % 2].synchronize()
+        assert torch.equal(pinned[k % 2], want[k % 2]), f"block {k}"
+    assert captures == [dev] and rx._block_fn._graph.captured
+    assert sum(rx.uploads.values()) == UPLOAD_BLOCKS
+    assert rx.uploads["staged"] > 0
+    assert rx._rows_up.stage is not None
+    print(f"upload: {dict(rx.uploads)} of {UPLOAD_BLOCKS} blocks")
+
+
+@pytest.mark.cuda
+def test_live_receiver_uploads_direct_on_card():
+    """A live receiver syncs on each block's blob before it stages the
+    next, so every upload finds the rows' buffer free: 20 blocks, all
+    direct, and no staging buffer made."""
+    dev = _card()
+    _, loop, p, _, _ = _bench_loop("mixed12_uep")
+    rx, frames = _live(loop.u8, 5 * p.T_F, dev)
+    try:
+        _live_blocks(rx, 20)
+    finally:
+        rx.close()
+    assert frames
+    assert rx.uploads == {"direct": 20}
+    assert rx._rows_up.stage is None
