@@ -11,7 +11,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from dabbench.gen.constants import INPUT_RATE, get_mode
-from dabbench.gen.loop import PERIOD_FRAMES, Loop
+from dabbench.gen.fic_layout import fic_codewords_per_frame, fic_profile
+from dabbench.gen.loop import Loop, period
 from dabbench.reference.receiver import Reference, decode_loop
 
 __all__ = ["geometries", "LoopSource", "reference_of", "LayerContext",
@@ -64,7 +65,7 @@ class LoopSource:
 def reference_of(loop: Loop, device, precision: str = "float64") -> Dict:
     """The reference's reading of one period of ``loop``."""
     ref = Reference(loop.cfg, device, precision)
-    return decode_loop(ref, loop.u8, PERIOD_FRAMES)
+    return decode_loop(ref, loop.u8, period(ref.p).frames)
 
 
 @dataclasses.dataclass
@@ -191,9 +192,10 @@ def check_receiver(checks, rx, tap: "Tap", cfg: Dict, device) -> None:
     from dabbench.check import compare_db, compare_taps, parse_blob
     refr = Reference(cfg, device)
     p = refr.p
+    n_fib = fic_codewords_per_frame(p) * fic_profile(p)[2]
     for rows, blob, coarse in tap.pulled():
         F = rows.shape[0]
-        port = parse_blob(blob, F, 12, p.T_u, p.K, [])
+        port = parse_blob(blob, F, n_fib, p.T_u, p.K, [])
         d = refr.demod(rows)
         d["fib"], d["fic_ok"] = refr.fic(d["soft"])
         compare_taps(checks, port, d)

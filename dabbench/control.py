@@ -29,18 +29,20 @@ def control_checks(cfg, seed: int, frames: int, device):
     """The control's numbers for one seed at a block of ``frames``."""
     from dabbench.common import reference_of
     from dabbench.drivers.core import judge
-    from dabbench.gen.loop import PERIOD_FRAMES, make_loop
+    from dabbench.gen.loop import make_loop, period
     loop = make_loop(cfg, seed)
+    p = loop.p
     ref = reference_of(loop, device, "float64")
     ctl = reference_of(loop, device, "bfloat16")
-    f = np.arange(frames) % PERIOD_FRAMES
+    f = np.arange(frames) % period(p).frames
     port = {k: ctl[k][f] for k in ("snr", "fine", "coarse", "t_off",
                                    "t_ok", "fic_ok", "fib")}
     port["spectrum"] = ctl["spectra"][f].mean(axis=0)
     port["constel"] = ctl["constel"][0]
-    port["frames"] = {sid: fr[np.arange(4 * frames) % fr.shape[0]]
+    port["frames"] = {sid: fr[np.arange(p.cifs_per_frame * frames)
+                              % fr.shape[0]]
                       for sid, fr in ctl["frames"].items()}
-    return judge(port, ref, frames, 0)
+    return judge(port, ref, p, frames, 0)
 
 
 def program_checks(cfg, seed: int, device, periods: int = 12):

@@ -19,7 +19,8 @@ import torch
 
 from dabbench.check import Checks, compare_taps, parse_blob
 from dabbench.common import LayerContext, frame_s, geometries, reference_of
-from dabbench.gen.loop import PERIOD_FRAMES, make_loop
+from dabbench.gen.constants import get_mode
+from dabbench.gen.loop import PERIOD_CIFS, make_loop, period
 
 __all__ = ["Driver"]
 
@@ -29,7 +30,8 @@ class Driver:
         self.cfg, self.wl, self.seed = cfg, wl, seed
         self.dev = torch.device(device)
         self.spans = spans
-        self.F = PERIOD_FRAMES * wl["traffic"]["periods_per_block"]
+        self.F = (period(get_mode(cfg["mode"])).frames
+                  * wl["traffic"]["periods_per_block"])
 
     # ------------------------------------------------------------ set-up
 
@@ -48,7 +50,8 @@ class Driver:
         self.hist = torch.zeros((HISTORY, CIF_BITS), dtype=torch.float32,
                                 device=self.dev)
         self.n_fib_cw = fic_codewords_per_frame(p)
-        self.n_fib = self.n_fib_cw * fic_profile(p)[2]
+        _, self.fic_bits, fibs_per_cw = fic_profile(p)
+        self.n_fib = self.n_fib_cw * fibs_per_cw
         # two warm blocks: every shape built, the history primed
         for _ in range(2):
             merged, self.meta = self._block()
@@ -64,9 +67,9 @@ class Driver:
         cut from each PRS on, the loop repeated ``periods_per_block``
         times."""
         p = self.p
-        base = np.arange(PERIOD_FRAMES) * p.T_F + p.T_null + p.T_g
+        base = np.arange(period(p).frames) * p.T_F + p.T_null + p.T_g
         idx = torch.as_tensor(base[:, None] + np.arange(self.need)[None, :])
-        rows = torch.as_tensor(u8)[idx]                  # [30, need, 2]
+        rows = torch.as_tensor(u8)[idx]          # [period frames, need, 2]
         return rows.repeat(self.wl["traffic"]["periods_per_block"], 1, 1)
 
     def _inputs(self) -> None:
@@ -136,7 +139,7 @@ class Driver:
 
     def layer_context(self, trace) -> LayerContext:
         cifs = self.F * self.p.cifs_per_frame
-        codewords = {"fic": (self.F * self.n_fib_cw, 768),
+        codewords = {"fic": (self.F * self.n_fib_cw, self.fic_bits),
                      "msc": [(cifs, 24 * s["bitrate"])
                              for s in self.cfg["services"]]}
         return LayerContext(
@@ -145,6 +148,7 @@ class Driver:
             program_spans={}, counters={}, cfg=self.cfg, wl=self.wl,
             shapes={"F": self.F, "need": int(self.need),
                     "T_u": self.p.T_u, "L": self.p.L, "K": self.p.K,
+                    "cifs_per_frame": self.p.cifs_per_frame,
                     "cif_bits": 55296, "n_fib": self.n_fib,
                     "codewords": codewords})
 
@@ -159,7 +163,7 @@ class Driver:
                    for geoms, shape in self.meta]
         port = parse_blob(self.first, self.F, self.n_fib, p.T_u, p.K,
                           buckets)
-        return judge(port, reference_of(self.loop, self.dev), self.F,
+        return judge(port, reference_of(self.loop, self.dev), p, self.F,
                      self.differ)
 
     def close(self) -> None:
@@ -174,15 +178,15 @@ class Driver:
         return self.blocks - self.differ if exact_bad else self.differ
 
 
-def judge(port: Dict, ref: Dict, F: int, differ: int,
+def judge(port: Dict, ref: Dict, p, F: int, differ: int,
           checks: Optional[Checks] = None) -> Checks:
-    """A core block's blob against the reference's reading of the loop:
-    frame f is loop frame f mod 30, logical frame t loop CIF t mod 120.
-    Into ``checks`` where given (counts add up, readings keep the
-    worst)."""
+    """A core block of ``F`` frames of mode ``p``: its blob against the
+    reference's reading of the loop.  Frame f is loop frame f mod the
+    mode's frames a period, logical frame t loop CIF t mod 120.  Into
+    ``checks`` where given (counts add up, readings keep the worst)."""
     checks = Checks() if checks is None else checks
     checks.add("blocks_differ", differ)
-    frames = np.arange(F) % PERIOD_FRAMES
+    frames = np.arange(F) % period(p).frames
     per_frame = {k: ref[k][frames] for k in
                  ("snr", "fine", "coarse", "t_off", "t_ok", "fib", "fic_ok",
                   "spectra", "constel")}
@@ -191,9 +195,9 @@ def judge(port: Dict, ref: Dict, F: int, differ: int,
     for sid, want in ref["frames"].items():
         got = port["frames"].get(sid)
         if got is None:
-            bad += 4 * F
+            bad += p.cifs_per_frame * F
             continue
-        exp = want[np.arange(got.shape[0]) % want.shape[0]]
+        exp = want[np.arange(got.shape[0]) % PERIOD_CIFS]
         bad += int(np.sum(np.any(got != exp, axis=-1)))
     checks.add("frames_bad", bad)
     return checks

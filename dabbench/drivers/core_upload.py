@@ -29,7 +29,7 @@ import torch
 from dabbench.check import LIMITS, Checks, parse_blob
 from dabbench.common import LoopSource, reference_of
 from dabbench.drivers import core
-from dabbench.gen.loop import PERIOD_FRAMES, make_loops
+from dabbench.gen.loop import make_loops, period
 from dabbench.reference.receiver import Reference, loop_rows
 
 __all__ = ["Driver", "reference_taps"]
@@ -93,9 +93,9 @@ class Driver(core.Driver):
         port = [parse_blob(b, self.F, self.n_fib, p.T_u, p.K, buckets)
                 for b in self.firsts]
         ref = reference_of(self.loop, self.dev)
-        checks = core.judge(port[0], ref, self.F, self.differ)
+        checks = core.judge(port[0], ref, p, self.F, self.differ)
         twin = dict(ref, **reference_taps(self.twin, self.dev))
-        return core.judge(port[1], twin, self.F, 0, checks)
+        return core.judge(port[1], twin, p, self.F, 0, checks)
 
     def failed(self, checks: Checks) -> int:
         """Blocks that differ from their buffer's first, or, where a first
@@ -109,10 +109,11 @@ def reference_taps(loop, device, chunk: int = 10) -> Dict[str, np.ndarray]:
     """The reference's per-frame taps and FIBs of one period of ``loop``
     (``decode_loop`` without the MSC)."""
     ref = Reference(loop.cfg, device)
+    n = period(ref.p).frames
     parts = []
-    for f0 in range(0, PERIOD_FRAMES, chunk):
+    for f0 in range(0, n, chunk):
         d = ref.demod(loop_rows(loop.u8, ref.p,
-                                range(f0, min(f0 + chunk, PERIOD_FRAMES))))
+                                range(f0, min(f0 + chunk, n))))
         d["fib"], d["fic_ok"] = ref.fic(d["soft"])
         parts.append(d)
     return {k: np.concatenate([d[k] for d in parts]) for k in TAPS}

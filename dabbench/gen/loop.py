@@ -1,13 +1,15 @@
 """A configuration file and a seed -> a seamless loop of u8 IQ.
 
-The loop is one whole payload period: ``PERIOD_FRAMES`` Mode I frames
-(120 CIFs; the MP2 payload repeats every 40 CIFs, the HE-AAC one every
-60).  It is rendered from frame ``START_FRAME`` on, after the time
-interleaver's 15-CIF warm-up, so frame ``START_FRAME + PERIOD_FRAMES``
-would equal frame ``START_FRAME`` again in every MSC bit: played end to
-end the loop is one endless stream.  AWGN at the configuration's SNR is
-added over the loop, and the sum is quantised to u8 (I, Q) pairs as an
-SDR delivers them.
+The loop is one whole payload period of ``PERIOD_CIFS`` (120) CIFs: the
+MP2 payload repeats every 40 CIFs, the HE-AAC one every 60.  The mode
+cuts it into frames (:func:`period`): 30 frames of Mode I (4 CIFs a
+frame), 120 of Mode II (1), 60 of Mode IV (2).  It is rendered from CIF
+``START_CIF`` (16) on, after the time interleaver's 15-CIF warm-up, so
+the frame after the loop's last would equal its first again in every MSC
+bit: played end to end the loop is one endless stream.  Mode III is
+refused: the reference's coarse-CFO search runs past the edges of its
+spectrum.  AWGN at the configuration's SNR is added over the loop, and
+the sum is quantised to u8 (I, Q) pairs as an SDR delivers them.
 
 The seed picks each service's tone and the noise; it never changes a
 size, so every seed asks for the same work.
@@ -18,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, NamedTuple
 
 import numpy as np
 
@@ -29,16 +31,17 @@ from dabbench.gen.tx import fig as figmod
 from dabbench.gen.tx.fig import ServiceSpec
 from dabbench.gen.tx.modulator import Modulator
 
-__all__ = ["PERIOD_FRAMES", "START_FRAME", "CONFIGS", "load_config",
+__all__ = ["PERIOD_CIFS", "START_CIF", "Period", "period", "PERIOD_FRAMES",
+           "CONFIGS", "load_config",
            "service_specs", "mp2_payload", "dabplus_payload",
            "payload_generators", "Loop", "make_loop", "make_loops",
            "quantize_u8", "u8_to_complex", "rng_for", "fib_rotation",
            "RotatingModulator", "start_offset"]
 
-PERIOD_FRAMES = 30
-START_FRAME = 4
-#: CIFs in one loop period (Mode I: 4 CIFs a frame)
+#: CIFs in one loop period
 PERIOD_CIFS = 120
+#: the loop's first CIF, after the time interleaver's 15-CIF warm-up
+START_CIF = 16
 #: u8 scale: x * U8_SCALE + 128, clipped (unit-power IQ clips in 0.1 % of samples)
 U8_SCALE = 64.0
 
@@ -52,6 +55,28 @@ def load_config(name: str) -> Dict:
     if cfg["name"] != name:
         raise ValueError(f"config file {name}.json names {cfg['name']}")
     return cfg
+
+
+class Period(NamedTuple):
+    """A loop period in frames of one mode."""
+    frames: int     # frames in one loop period
+    start: int      # the loop's first frame
+
+
+def period(p) -> Period:
+    """The loop period of mode ``p`` (a ``DabParams``): ``PERIOD_CIFS``
+    CIFs from CIF ``START_CIF`` on, in the mode's frames."""
+    if p.mode == 3:
+        raise ValueError(
+            "Mode III has no loop: the reference's coarse-CFO search "
+            "slides the 192-carrier band +-35 bins in a 256-point "
+            "spectrum, past its edges")
+    return Period(PERIOD_CIFS // p.cifs_per_frame,
+                  START_CIF // p.cifs_per_frame)
+
+
+#: Mode I's frames a period, which the port's card tests import
+PERIOD_FRAMES = period(get_mode(1)).frames
 
 
 def rng_for(seed: int, *salt: int) -> np.random.Generator:
@@ -130,7 +155,7 @@ def start_offset(cfg: Dict, seed: int, salt: int) -> int:
     """Where a source starts playing a loop: at the start (the null
     symbol) of a loop frame drawn from the seed."""
     p = get_mode(cfg["mode"])
-    return int(rng_for(seed, 4, salt).integers(PERIOD_FRAMES)) * p.T_F
+    return int(rng_for(seed, 4, salt).integers(period(p).frames)) * p.T_F
 
 
 def quantize_u8(iq: np.ndarray) -> np.ndarray:
@@ -146,14 +171,14 @@ def u8_to_complex(u8: np.ndarray) -> np.ndarray:
 
 
 def fib_rotation(ensemble_id: int, ensemble_label: str,
-                 services: List[ServiceSpec], n_fibs: int, frame_index: int
-                 ) -> List[bytes]:
+                 services: List[ServiceSpec], n_fibs: int, frame_index: int,
+                 cifs_per_frame: int) -> List[bytes]:
     """The FIBs of one frame, as a multiplexer cycles a FIG set larger
-    than one frame's FIC: the FIB with FIG 0/0 (this frame's CIF count)
-    first in every frame, the others in turn, so that every service label
-    is sent within a few frames.  A set that fits in one frame is the
-    copied transmitter's schedule unchanged."""
-    cif_count = (frame_index * 4) % 5000
+    than one frame's FIC: the FIB with FIG 0/0 (the CIF count of this
+    frame's first CIF) first in every frame, the others in turn, so that
+    every service label is sent within a few frames.  A set that fits in
+    one frame is the copied transmitter's schedule unchanged."""
+    cif_count = (frame_index * cifs_per_frame) % 5000
     figs = [figmod.fig0_0(ensemble_id, cif_count),
             *figmod.fig0_1(services), *figmod.fig0_2(services),
             figmod.fig1_0(ensemble_id, ensemble_label),
@@ -177,7 +202,8 @@ class RotatingModulator(Modulator):
         n_cw = fic_codewords_per_frame(self.p)
         blocks, _, fibs_per_cw = fic_profile(self.p)
         fibs = fib_rotation(self.ensemble_id, self.ensemble_label,
-                            self.services, fibs_per_cw * n_cw, frame_index)
+                            self.services, fibs_per_cw * n_cw, frame_index,
+                            self.p.cifs_per_frame)
         mask = puncture.puncture_mask(blocks, [16, 15])
         out = np.empty((n_cw, mask.sum()), np.uint8)
         for cw in range(n_cw):
@@ -191,7 +217,7 @@ class RotatingModulator(Modulator):
 
 @dataclasses.dataclass
 class Loop:
-    """One rendered loop: ``u8`` [PERIOD_FRAMES * T_F, 2], and the
+    """One rendered loop: ``u8`` [period(p).frames * T_F, 2], and the
     payload the transmitter put in each subchannel at each loop CIF."""
     cfg: Dict
     seed: int
@@ -204,7 +230,8 @@ class Loop:
 
     def payload_bytes(self, subch: int, loop_cif: int) -> np.ndarray:
         """The packed payload of ``subch`` at loop CIF ``loop_cif``."""
-        cif = START_FRAME * self.p.cifs_per_frame + loop_cif % PERIOD_CIFS
+        p = self.p
+        cif = period(p).start * p.cifs_per_frame + loop_cif % PERIOD_CIFS
         return np.packbits(np.asarray(self.payloads[subch](cif), np.uint8))
 
 
@@ -218,15 +245,13 @@ def make_loops(cfg: Dict, seed: int, salt: int = 0,
                draws: int = 1) -> List[Loop]:
     """``draws`` loops of one rendered signal: the same payloads under
     noise draws of their own, the first of them :func:`make_loop`'s."""
-    p = get_mode(cfg["mode"])
-    if p.cifs_per_frame * PERIOD_FRAMES != PERIOD_CIFS:
-        raise ValueError("the loop is cut for Mode I")
+    per = period(get_mode(cfg["mode"]))
     payloads = payload_generators(cfg, seed, salt)
     mod = RotatingModulator(mode=cfg["mode"],
                             ensemble_id=cfg["ensemble"]["eid"],
                             ensemble_label=cfg["ensemble"]["label"],
                             services=service_specs(cfg), payloads=payloads)
-    x = mod.frames(PERIOD_FRAMES, start_frame=START_FRAME)
+    x = mod.frames(per.frames, start_frame=per.start)
     sig_pow = float(np.mean(np.abs(x) ** 2))
     noise_pow = sig_pow / (10 ** (cfg["snr_db"] / 10))
     loops = []

@@ -5,7 +5,7 @@ The bound is fixed from the cell's shapes, whatever implements the
 graph: the larger of the bytes it must move at 3.35 TB/s (the u8 IQ
 rows read once, the CIF soft block written once at one byte a soft bit,
 the FIB bytes written once) and its FFTs' operations (5 N log2 N for
-each of the L 2048-point transforms of every frame) at 67 TFLOP/s
+each of the L ``T_u``-point transforms of every frame) at 67 TFLOP/s
 (float32, outside the tensor cores).
 """
 
@@ -18,8 +18,9 @@ UNIT = "%"
 
 def bound_s(shapes) -> float:
     F = shapes["F"]
+    cifs = F * shapes["cifs_per_frame"]
     bytes_ = (F * shapes["need"] * 2               # u8 IQ rows
-              + F * 4 * shapes["cif_bits"]         # int8 CIF soft block
+              + cifs * shapes["cif_bits"]          # int8 CIF soft block
               + F * shapes["n_fib"] * 30)          # FIB bytes
     n = shapes["T_u"]
     flops = F * shapes["L"] * 5 * n * math.log2(n)

@@ -23,6 +23,7 @@ import torch
 
 from dabbench.gen.constants import CIF_BITS, CU_BITS, get_mode
 from dabbench.gen.fec import conv, prbs, puncture
+from dabbench.gen.fic_layout import fic_codewords_per_frame, fic_profile
 from dabbench.gen.ofdm import tables
 
 __all__ = ["Reference", "HISTORY", "DELAYS", "FS"]
@@ -206,22 +207,28 @@ class Reference:
     # -------------------------------------------------------------- FIC
 
     def fic(self, soft: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """soft [F, L-1, 2K] -> (FIB bytes [F, 12, 30] without their CRC,
-        CRC flags [F, 12]); Mode I: 4 codewords a frame, 3 FIBs each."""
+        """soft [F, L-1, 2K] -> (FIB bytes [F, n, 30] without their CRC,
+        CRC flags [F, n]) for the mode's n FIBs a frame: its FIC symbols
+        hold ``fic_codewords_per_frame`` codewords (Mode I 4, II 1, IV
+        2), each of 3 FIBs (768 bits)."""
         p = self.p
         F = soft.shape[0]
-        cw = soft[:, : p.fic_symbols].reshape(F * 4, -1)
-        mask = puncture.puncture_mask([21, 3], [16, 15])
-        bits = self.viterbi(self._depuncture(cw, mask), 768)
-        bits = bits ^ prbs.prbs(768)
-        fibs = np.packbits(bits.reshape(F, 12, 256), axis=-1)   # [F, 12, 32]
+        n_cw = fic_codewords_per_frame(p)
+        blocks, nbits, fibs_per_cw = fic_profile(p)
+        cw = soft[:, : p.fic_symbols].reshape(F * n_cw, -1)
+        mask = puncture.puncture_mask(blocks, [16, 15])
+        bits = self.viterbi(self._depuncture(cw, mask), nbits)
+        bits = bits ^ prbs.prbs(nbits)
+        fibs = np.packbits(bits.reshape(F, n_cw * fibs_per_cw, 256),
+                           axis=-1)                         # [F, n, 32]
         ok = np.array([[_crc16_ok(f) for f in row] for row in fibs])
         return fibs[..., :30], ok
 
     # -------------------------------------------------------------- MSC
 
     def cifs(self, soft: np.ndarray) -> np.ndarray:
-        """soft [F, L-1, 2K] -> the CIFs [F * 4, 55296] in order."""
+        """soft [F, L-1, 2K] -> the CIFs [F * cifs_per_frame, 55296] in
+        order (Mode I 4 a frame, II 1, IV 2)."""
         p = self.p
         return soft[:, p.fic_symbols:].reshape(-1, CIF_BITS)
 
@@ -281,10 +288,11 @@ def loop_rows(u8: np.ndarray, p, frames: Sequence[int]) -> np.ndarray:
 
 def decode_loop(ref: Reference, u8: np.ndarray, n_frames: int,
                 chunk: int = 10) -> Dict:
-    """Everything the reference reads from one period of a loop:
-    per-frame taps, FIBs and flags, and each subchannel's 4 n_frames
-    logical frames; output CIF t's frame is de-interleaved from the
-    loop's CIFs t - 15 .. t, cyclically (the stream repeats)."""
+    """Everything the reference reads from one period of a loop,
+    ``n_frames`` frames of its mode: per-frame taps, FIBs and flags, and
+    each subchannel's ``cifs_per_frame * n_frames`` logical frames;
+    output CIF t's frame is de-interleaved from the loop's CIFs t - 15 ..
+    t, cyclically (the stream repeats)."""
     p = ref.p
     parts: List[Dict] = []
     for f0 in range(0, n_frames, chunk):
