@@ -736,8 +736,8 @@ def test_demod_kernels_refuse_bad_input_on_card():
 # ------------------------------------------------------------ CUDA graphs
 
 def _bench_loop(name, seed=2024):
-    """A benchmark configuration's geometries and its loop's 30 frame
-    rows (u8) on the card."""
+    """A benchmark configuration's geometries and its loop's frame rows
+    (u8, one period of its mode)."""
     import json
     import pathlib
     from dabbench.common import geometries
@@ -751,11 +751,12 @@ def _bench_loop(name, seed=2024):
 
 
 def _loop_rows(loop):
-    """A loop's 30 frame rows (u8), each cut from its PRS on."""
-    from dabbench.gen.loop import PERIOD_FRAMES
+    """A loop's frame rows (u8), one period of its mode, each cut from
+    its PRS on."""
+    from dabbench.gen.loop import period
     from dabjax_torch.ofdm.demod import min_frame_samples
     p = loop.p
-    base = np.arange(PERIOD_FRAMES) * p.T_F + p.T_null + p.T_g
+    base = np.arange(period(p).frames) * p.T_F + p.T_null + p.T_g
     idx = base[:, None] + np.arange(min_frame_samples(p))[None, :]
     return torch.as_tensor(loop.u8[idx])
 
@@ -1155,7 +1156,7 @@ def test_upload_beside_the_block_graph_on_card(monkeypatch):
     one rows buffer."""
     import json
     import pathlib
-    from dabbench.gen.loop import PERIOD_FRAMES, make_loops
+    from dabbench.gen.loop import make_loops, period
     from dabjax_torch import graphs
     from dabjax_torch.constants import get_mode
     from dabjax_torch.runtime.config import ReceiverConfig
@@ -1167,7 +1168,7 @@ def test_upload_beside_the_block_graph_on_card(monkeypatch):
     with open(path) as f:
         cfg = json.load(f)
     p = get_mode(cfg["mode"])
-    F = 12 * PERIOD_FRAMES
+    F = 12 * period(get_mode(1)).frames
     bufs = []
     for loop in make_loops(cfg, 2024, draws=2):
         rows = _loop_rows(loop).repeat(12, 1, 1)
@@ -1226,3 +1227,16 @@ def test_live_receiver_uploads_direct_on_card():
     assert frames
     assert rx.uploads == {"direct": 20}
     assert rx._rows_up.stage is None
+
+
+@pytest.mark.cuda
+def test_lband_core_block_is_correct_on_card():
+    """The L-Band Mode II cell's block, 1,440 frames of all 12 services,
+    through the core driver (the block graph and ``EnsembleDecoder.fused``
+    captured and replayed) on the card, held to the benchmark's plain
+    reference by the cell's own comparison."""
+    from dabbench.control import program_checks
+    from dabbench.gen.loop import load_config
+    dev = _card()
+    c = program_checks(load_config("dabplus12_eep3a_lband"), 28, dev)
+    assert c.correct, c.values
