@@ -149,12 +149,21 @@ non-zero exit at the first failure:
     a call; the device time of the packed K2, of K2 alone and of K2 and
     the torch chain it replaces (medians of 5 runs) beside the packed
     K2's bytes' bound (8 bytes of decisions a step read, nbits / 8
-    written).
+    written);
+15. coarse CFO: the coarse-CFO kernel (``csrc/demod.cu`` ``coarse_cfo``)
+    at the core cells' shapes, [360, 2048] PRS spectra in Mode I (phase
+    12's, rolled by every offset in -35..35) and [1440, 512] in Mode II
+    (the PRS reference moved by those offsets under noise): the offsets
+    equal the plain chain's and the known ones frame for frame, one
+    launch a call; its device time and the plain chain's (medians of 5
+    runs) beside its bound (the band's bytes at 3.35 TB/s, its complex
+    multiply-adds at the FP32 rate).
 
 The kernels' launch counts (``_build.LAUNCHES``) are cleared just
 before phases 4-5 (K1, K2, the demod kernels, the MSC front end, which
-phase 4's batch launches once, and K2's packed epilogue, which phase
-5's receiver launches a bucket a block while K2 itself decodes its FIC),
+phase 4's batch launches once, K2's packed epilogue, which phase 5's
+receiver launches a bucket a block while K2 itself decodes its FIC, and
+the coarse-CFO kernel, which the receiver launches once a block),
 phase 6 (K3, K4), the probes' ``main()`` runs of phase 10 (the probe
 kernels, and K3 for ``vit_split2``) and phase 11 (K1-K4; counted around
 the mesh path's own calls, not the references it is held to) and read
@@ -2206,6 +2215,99 @@ def phase_pack(dev, report, golden):
     report["k2_packed"] = out
 
 
+#: phase 15's Mode II shape: the L-Band core cell's block (1,440 frames)
+COARSE_FRAMES_II = 1440
+
+
+def _coarse_offsets(n: int):
+    """[n] int64: -35..35 over and over, the coarse filter's every offset."""
+    import numpy as np
+    return np.tile(np.arange(-35, 36), -(-n // 71))[:n]
+
+
+def _coarse_spectra(dev, golden):
+    """{mode: (PRS spectra complex64 [F, T_u] on the card, offsets [F])}:
+    Mode I phase 12's 360 frames of phase 4's golden IQ (their fine CFOs
+    under half a carrier), each rolled by its offset; Mode II the PRS
+    reference over 1,440 frames, each moved by its offset, under complex
+    noise of std 0.5 (the benchmark's Mode II signal comes from its own
+    generator, which this script does not render)."""
+    import numpy as np
+    import torch
+    from dabjax_torch.constants import get_mode
+    from dabjax_torch.ofdm import demod, tables
+
+    p, F = golden["p"], DEMOD_FRAMES
+    rows, _ = _demod_rows(golden, F)
+    spec0 = demod.demodulate_rows(rows, torch.zeros(F, device=dev), p,
+                                  "u8").spec0
+    offs = _coarse_offsets(F)
+    one = torch.stack([torch.roll(spec0[f], int(o))
+                       for f, o in enumerate(offs)])
+    p2, offs2 = get_mode(2), _coarse_offsets(COARSE_FRAMES_II)
+    rng = np.random.default_rng(2)
+    ref = tables.phase_ref_bins(2, p2.T_u, p2.K)
+    x = np.stack([np.roll(ref, o) for o in offs2]) + 0.5 * (
+        rng.standard_normal((len(offs2), p2.T_u))
+        + 1j * rng.standard_normal((len(offs2), p2.T_u)))
+    two = torch.from_numpy(x.astype(np.complex64)).to(dev)
+    return {1: (p, one, offs), 2: (p2, two, offs2)}
+
+
+def phase_coarse(dev, report, golden):
+    """Phase 15: the coarse-CFO kernel (``csrc/demod.cu`` ``coarse_cfo``)
+    at the core cells' shapes, [360, 2048] in Mode I (phase 12's golden
+    spectra, rolled by -35..35) and [1440, 512] in Mode II (the PRS
+    reference moved by -35..35 under noise): its offsets equal the plain
+    chain's (``coarse_cfo_estimate_torch``) frame for frame, and the
+    known offsets; one launch a call.  Its device time (medians of 5 runs
+    of 20 calls, ``tools.device_ms``) beside its bound (the band of K +
+    72 bins a frame read once at 3.35 TB/s, and its 71 K complex
+    multiply-adds a frame at the FP32 rate, the larger) and the plain
+    chain's; no single library call computes it."""
+    import torch
+    from dabjax_torch.ofdm import demod
+
+    out = {}
+    for mode, (p, spec, offs) in _coarse_spectra(dev, golden).items():
+        F = spec.shape[0]
+        _clear_launches()
+        got = demod.coarse_cfo_estimate(spec, p)
+        torch.cuda.synchronize()
+        per_call = _launched("coarse_cfo")["coarse_cfo"]
+        _check(per_call == 1, f"coarse_cfo launches a call {per_call}")
+        want = demod.coarse_cfo_estimate_torch(spec, p)
+        _check(torch.equal(got, want),
+               f"coarse_cfo differs from the plain chain in mode {mode} on "
+               f"{int((got != want).sum())} of {F} frames")
+        _check(got.tolist() == offs.tolist(),
+               f"coarse_cfo misses the known offsets in mode {mode}")
+        # the band: K carriers, 35 bins each way, one more for the
+        # products; the reference products and the offsets
+        nbytes = F * (p.K + 72) * 8 + p.K * 8 + F * 4
+        ops = F * 71 * p.K * 8                 # 4 FMA a complex term
+        k = _median_runs(lambda: demod.coarse_cfo_estimate(spec, p),
+                         reps=20)
+        pl = _median_runs(lambda: demod.coarse_cfo_estimate_torch(spec, p),
+                          reps=5)
+        bound = _bound(nbytes, ops, "fp32_flop")
+        bound["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        bound["x_bound"] = k["median"] / bound["bound_ms"]
+        out[f"mode{mode}"] = {
+            "shape": [F, p.T_u], "launches_a_call": per_call,
+            "max_abs_err": 0.0, "ms": k["median"], "runs_ms": k["runs_ms"],
+            "plain_ms": pl["median"], "plain_runs_ms": pl["runs_ms"],
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "bound": bound}
+        print(f"coarse_cfo: mode {mode}, {F} spectra of {p.T_u} bins: "
+              f"offsets equal the plain chain's and the known ones; device "
+              f"ms {k['median']:.5f} (plain chain {pl['median']:.4f}), "
+              f"bound {bound['bound_ms']:.5f} ms by {bound['bound_by']} "
+              f"(bytes {bound['bytes_ms']:.5f}), x bound "
+              f"{bound['x_bound']:.2f}")
+    report["coarse_cfo"] = out
+
+
 #: the card's data-sheet rates (NVIDIA H100 SXM, dense, at 700 W): device
 #: memory; FP32 outside the tensor cores, an FMA counted as 2; one op a
 #: lane and clock (half the FP32 rate: 128 lanes x 132 SMs x 1.98 GHz, the
@@ -2337,6 +2439,18 @@ def _kernel_lines(report, launches):
              chain_ms=dm["chain_ms"],
              u8_convert_ms=dm["plain_ms"]["u8_convert"])
         for k in ("guard_corr", "mix_windows", "dqpsk_soft")]
+    # no TPU kernel: dabjax's coarse CFO is a jnp chain XLA fuses; the
+    # plain time is the torch chain it replaces, at the Mode I core shape
+    # (Mode II's beside it)
+    cc = report["coarse_cfo"]["mode1"]
+    demod_lines.append(line(
+        "coarse_cfo", demod_src,
+        "none (dabjax/ofdm/demod.py coarse_cfo_estimate, a jnp chain)",
+        launches["coarse_cfo"], cc["max_abs_err"], cc["ms"], cc["plain_ms"],
+        None, cc["bound"], runs_ms=cc["runs_ms"],
+        plain_runs_ms=cc["plain_runs_ms"],
+        launches_a_call=cc["launches_a_call"], shape=cc["shape"],
+        mode2=report["coarse_cfo"]["mode2"]))
     return [
         line("viterbi_forward_acs", src, "dabjax/fec/viterbi_pallas.py:85",
              launches["k1"], err["k1"], msc["k1"][1], msc["k1"][2], None,
@@ -2533,7 +2647,8 @@ def main() -> int:
     loop_iq = timed(phase_receiver)
     torch.cuda.synchronize()
     launches = _launched("k1", "k2", "guard_corr", "mix_windows",
-                         "dqpsk_soft", "msc_front", "k2_packed")
+                         "dqpsk_soft", "coarse_cfo", "msc_front",
+                         "k2_packed")
     _check(all(n > 0 for n in launches.values()),
            f"main path did not launch every kernel: {launches}")
     _build.LAUNCHES.clear()
@@ -2558,6 +2673,7 @@ def main() -> int:
     timed(phase_demod, golden)
     timed(phase_front, golden)
     timed(phase_pack, golden)
+    timed(phase_coarse, golden)
 
     kernels = _kernel_lines(report, launches)
     for line, k in zip(kernels, ("k1", "k2", "k3", "k4")):
@@ -2575,7 +2691,8 @@ def main() -> int:
                       "bank": report["bank"], "trace": report["trace"],
                       "mesh": report["mesh"], "demod": report["demod"],
                       "msc_front": report["msc_front"],
-                      "k2_packed": report["k2_packed"]}))
+                      "k2_packed": report["k2_packed"],
+                      "coarse_cfo": report["coarse_cfo"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

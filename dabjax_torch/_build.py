@@ -45,8 +45,9 @@ build_seconds = 0.0
 
 #: launches of each kernel since the last ``LAUNCHES.clear()``, by the
 #: name its wrapper counts it under ("k1" .. "k4", "guard_corr",
-#: "mix_windows", "dqpsk_soft", "msc_front", the probes'); a CUDA graph's
-#: replay adds what its capture counted (``graphs.BlockGraph``)
+#: "mix_windows", "dqpsk_soft", "coarse_cfo", "msc_front", the probes');
+#: a CUDA graph's replay adds what its capture counted
+#: (``graphs.BlockGraph``)
 LAUNCHES: collections.Counter = collections.Counter()
 
 

@@ -43,6 +43,24 @@
 // shuffle and shared-memory tree in double; no atomics), so its result
 // repeats from run to run; u8 terms are summed in integers, exactly,
 // float terms in double.
+//
+// coarse_cfo, the integer-carrier CFO of each frame from its PRS
+// spectrum (dabjax's coarse_cfo_estimate, a jnp chain XLA fused; the
+// plain path demod.coarse_cfo_estimate_torch), replaces a torch chain
+// that gathered every candidate band into a [F, 2 search + 1, K]
+// complex64 tensor (314 MB a core block), multiplied it and summed it
+// back.  The work is 71 K complex multiply-adds a frame from a band of
+// K + 71 bins, so the kernel keeps everything in shared memory: a block
+// a frame reads the rolled band once, forms the differential products,
+// and each warp scores kCoarseShifts shifts from a register window of
+// products, kCoarseChunk carriers a lane at a time (each product load
+// serves up to 3 shifts, each reference load 9).  Float32 FMAs, summed
+// in an order that depends on the carrier alone (lanes over chunks,
+// then a fixed shuffle tree), so equal candidates score equal and the
+// scan's strict > keeps the first maximum, as torch.argmax does (a NaN
+// score wins, the first one).  The chain's scores are rounded in
+// another order: the two agree where the top two scores differ by more
+// than their rounding.
 
 #include <cuda_runtime.h>
 
@@ -53,6 +71,8 @@ constexpr int kMixV = 8;             // samples a thread
 constexpr int kMixThreads = 128;
 constexpr int kSoftCarriers = 3;     // carriers a thread; K / 3 threads
 constexpr int kWaves = 2;            // resident thread sets a launch fills
+constexpr int kCoarseShifts = 9;     // shifts a warp scores
+constexpr int kCoarseChunk = 3;      // carriers a lane takes at a time
 
 // Sample i of a row as (re, im) floats: u8 pairs as (u - 128) / 128,
 // the plain path's conversion, which is exact; float pairs as they are.
@@ -263,6 +283,95 @@ __global__ void dqpsk_soft(const float2* __restrict__ spec,
   }
 }
 
+// The integer CFO of frame blockIdx.x from its PRS spectrum: with the
+// spectrum rolled by T_u / 2 (bin m at spec[(m + T_u / 2) mod T_u]) and
+// its differential products d_rx[i] = s[i] conj(s[i + 1]), the score of
+// shift s in [-search, search] is |sum_k d_rx[c(lo + s + k)]
+// conj(ref[k])| over the K carriers from lo = T_u / 2 - K / 2, where
+// c() clamps to [0, T_u - 2] (the chain's clamped gather); writes the
+// first best shift.  Shared memory: ref [K], the band of rolled bins
+// [n_prod + 1] and its products d[j] = d_rx[c(lo - search + j)]
+// [n_prod], n_prod = K + shifts - 1 for the block's padded shift count;
+// then the shifts' scores.  Warp w scores shifts w kCoarseShifts + t
+// (those past 2 search read the clamped band and are not scanned).
+__global__ void coarse_cfo(const float2* __restrict__ spec,
+                           long long row_stride, int T_u, int K, int search,
+                           const float2* __restrict__ ref,
+                           int* __restrict__ out) {
+  extern __shared__ float2 smem[];
+  const int f = blockIdx.x;
+  const int shifts = blockDim.x / 32 * kCoarseShifts;
+  const int n_prod = K + shifts - 1;
+  const int first = T_u / 2 - K / 2 - search;
+  const int m0 = min(max(first, 0), T_u - 2);
+  const int m1 = min(max(first + n_prod - 1, 0), T_u - 2) + 1;
+  float2* r = smem;
+  float2* band = r + K;
+  float2* d = band + n_prod + 1;
+  float* score = reinterpret_cast<float*>(d + n_prod);
+
+  const float2* row = spec + f * row_stride;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) r[k] = __ldg(ref + k);
+  for (int m = m0 + threadIdx.x; m <= m1; m += blockDim.x) {
+    const int b = m + T_u / 2;
+    band[m - m0] = __ldg(row + (b < T_u ? b : b - T_u));
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_prod; j += blockDim.x) {
+    const int i = min(max(first + j, 0), T_u - 2) - m0;
+    const float2 a = band[i], b = band[i + 1];
+    d[j] = make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  const int s0 = threadIdx.x / 32 * kCoarseShifts;
+  float re[kCoarseShifts], im[kCoarseShifts];
+#pragma unroll
+  for (int t = 0; t < kCoarseShifts; ++t) re[t] = im[t] = 0.0f;
+  for (int c = lane; c < K / kCoarseChunk; c += 32) {
+    const int k0 = c * kCoarseChunk;
+    float2 w[kCoarseShifts + kCoarseChunk - 1];
+#pragma unroll
+    for (int i = 0; i < kCoarseShifts + kCoarseChunk - 1; ++i)
+      w[i] = d[s0 + k0 + i];
+#pragma unroll
+    for (int q = 0; q < kCoarseChunk; ++q) {
+      const float2 rq = r[k0 + q];
+#pragma unroll
+      for (int t = 0; t < kCoarseShifts; ++t) {
+        // += d conj(ref)
+        re[t] = fmaf(w[t + q].x, rq.x, re[t]);
+        re[t] = fmaf(w[t + q].y, rq.y, re[t]);
+        im[t] = fmaf(w[t + q].y, rq.x, im[t]);
+        im[t] = fmaf(-w[t + q].x, rq.y, im[t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kCoarseShifts; ++t) {
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) {
+      re[t] += __shfl_down_sync(0xffffffffu, re[t], o);
+      im[t] += __shfl_down_sync(0xffffffffu, im[t], o);
+    }
+    if (lane == 0) score[s0 + t] = hypotf(re[t], im[t]);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int best = 0;
+    float top = score[0];
+    for (int s = 1; s <= 2 * search; ++s) {
+      const float v = score[s];
+      if (v > top || (v != v && top == top)) {
+        best = s;
+        top = v;
+      }
+    }
+    out[f] = best - search;
+  }
+}
+
 // Runs of symbols a launch cuts `symbols` into, so that about kWaves
 // full sets of resident threads run when `threads` threads cover one
 // run of every frame.
@@ -337,6 +446,26 @@ int dabjax_demod_dqpsk_soft(const void* spec, const void* bins, int F,
       L, K, fic, w, static_cast<float>(T_s), static_cast<const float*>(cfo),
       static_cast<float*>(fic_out), fic_stride,
       static_cast<float*>(msc_out), msc_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// spec: complex64 rows [F, T_u], each row's bins contiguous, rows
+// row_stride bins apart; ref: complex64 [K], the reference's
+// differential products over the band; out: int32 [F].  K a multiple of
+// kCoarseChunk, 2 search + 1 at most 32 kCoarseShifts, else
+// cudaErrorInvalidValue and no launch.
+int dabjax_demod_coarse_cfo(const void* spec, long long row_stride, int F,
+                            int T_u, int K, int search, const void* ref,
+                            void* out, void* stream) {
+  const int warps = (2 * search + kCoarseShifts) / kCoarseShifts;
+  if (K % kCoarseChunk != 0 || search < 0 || warps > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_prod = K + warps * kCoarseShifts - 1;
+  const size_t bytes = (K + 2 * n_prod + 1) * sizeof(float2)
+                       + warps * kCoarseShifts * sizeof(float);
+  coarse_cfo<<<F, 32 * warps, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(spec), row_stride, T_u, K, search,
+      static_cast<const float2*>(ref), static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

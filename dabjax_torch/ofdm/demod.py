@@ -8,10 +8,12 @@ dabjax's ``_demod_spectra_fft``).  Inputs are complex64 tensors
 :func:`demodulate_rows` also takes the block graph's uint8 or float32
 (re, im) pairs.
 
-On a CUDA tensor the fine CFO and the demod around the FFT run as the
-kernels of :mod:`dabjax_torch.ofdm.demod_cuda`; on any other device as
-the plain versions here (``*_torch``), which are dabjax's chain.  Given
-the same CFO both give the same soft bits and spectra, bit for bit.
+On a CUDA tensor the fine CFO, the demod around the FFT and the coarse
+CFO run as the kernels of :mod:`dabjax_torch.ofdm.demod_cuda`; on any
+other device as the plain versions here (``*_torch``), which are
+dabjax's chain.  Given the same CFO both give the same soft bits and
+spectra, bit for bit; the coarse CFO the same offsets but where the
+filter's best two scores lie within float32 rounding of each other.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ __all__ = ["min_frame_samples", "frame_window_index", "demodulate_frames",
            "demodulate_frames_cfo", "demodulate_frames_cfo_torch",
            "mix_windows_torch", "dqpsk_soft_torch",
            "snr_estimate", "fine_cfo_estimate", "fine_cfo_estimate_torch",
-           "coarse_cfo_estimate", "apply_cfo", "KINDS", "Demodulated",
-           "check_rows", "complex_rows", "demodulate_rows",
-           "demodulate_rows_torch"]
+           "coarse_cfo_estimate", "coarse_cfo_estimate_torch", "apply_cfo",
+           "KINDS", "Demodulated", "check_rows", "complex_rows",
+           "demodulate_rows", "demodulate_rows_torch"]
 
 FS = 2_048_000.0
 
@@ -175,31 +177,50 @@ def fine_cfo_estimate_torch(samples: torch.Tensor, p: DabParams
 
 
 @functools.lru_cache(maxsize=None)
-def _coarse_tables(mode: int, T_u: int, K: int, search: int,
-                   device: torch.device):
-    ref = tables.phase_ref_bins(mode, T_u, K)
-    ref_c = np.roll(ref, T_u // 2)
+def _coarse_ref(mode: int, T_u: int, K: int, device: torch.device
+                ) -> torch.Tensor:
+    """complex64 [K]: the PRS reference's differential products over the
+    band of the K carriers from ``T_u / 2 - K / 2`` of the rolled
+    spectrum."""
+    ref_c = np.roll(tables.phase_ref_bins(mode, T_u, K), T_u // 2)
     d_ref = ref_c[:-1] * np.conj(ref_c[1:])
     lo = T_u // 2 - K // 2
-    d_ref_band = d_ref[lo: lo + K].astype(np.complex64)
+    return torch.as_tensor(d_ref[lo: lo + K].astype(np.complex64),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _coarse_index(T_u: int, K: int, search: int, device: torch.device
+                  ) -> torch.Tensor:
+    """int64 [2 search + 1, K]: the product each shift's candidate reads
+    at each carrier."""
+    lo = T_u // 2 - K // 2
     shift_idx = (np.arange(-search, search + 1)[:, None]
                  + lo + np.arange(K)[None, :])
     # where the search passes the band edge (Mode III: T_u = 256 leaves
     # fewer than 35 spare bins), read the edge product, as dabjax's
     # clamped gather does
     shift_idx = np.clip(shift_idx, 0, T_u - 2)
-    return (torch.as_tensor(d_ref_band, device=device),
-            torch.as_tensor(shift_idx.astype(np.int64), device=device))
+    return torch.as_tensor(shift_idx.astype(np.int64), device=device)
 
 
 def coarse_cfo_estimate(spectrum0: torch.Tensor, p: DabParams,
                         search: int = 35) -> torch.Tensor:
     """Integer-carrier CFO from the PRS spectrum, +-``search`` carriers:
     the differential-coherent matched filter of dabjax.  Returns int32 [F]
-    carrier offsets (the spectrum sits ``offset`` carriers too high)."""
-    T_u, K = p.T_u, p.K
-    d_ref_band, shift_idx = _coarse_tables(p.mode, T_u, K, search,
-                                           spectrum0.device)
+    carrier offsets (the spectrum sits ``offset`` carriers too high).  On
+    a CUDA tensor one kernel (``demod_cuda.coarse_cfo``)."""
+    if spectrum0.is_cuda:
+        return demod_cuda.coarse_cfo(spectrum0, p, search)
+    return coarse_cfo_estimate_torch(spectrum0, p, search)
+
+
+def coarse_cfo_estimate_torch(spectrum0: torch.Tensor, p: DabParams,
+                              search: int = 35) -> torch.Tensor:
+    """The plain version of :func:`coarse_cfo_estimate`, on any device."""
+    T_u = p.T_u
+    d_ref_band = _coarse_ref(p.mode, T_u, p.K, spectrum0.device)
+    shift_idx = _coarse_index(T_u, p.K, search, spectrum0.device)
     spec_c = torch.roll(spectrum0, T_u // 2, dims=-1)
     d_rx = spec_c[..., :-1] * torch.conj(spec_c[..., 1:])
     cand = d_rx[..., shift_idx]                      # [..., 2*search+1, K]

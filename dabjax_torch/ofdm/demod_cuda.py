@@ -10,7 +10,13 @@ The demod of frame rows on a CUDA card is three kernels around one
   CFO ramp, written as complex64 ``[F, L, T_u]`` for cuFFT;
 * ``dqpsk_soft``: the DQPSK soft bits of the active carriers, written
   straight into the FIC tensor and the CIF block (or one
-  ``[F, L-1, 2K]`` tensor).
+  ``[F, L-1, 2K]`` tensor);
+
+and, on the PRS spectrum the FFT gives, ``coarse_cfo``: the coarse
+(integer-carrier) CFO of each frame by the differential matched filter,
+the offsets of the plain ``demod.coarse_cfo_estimate_torch`` wherever
+its best two scores are not within float32 rounding of each other
+(ties, exact ones included, go to the first shift in both).
 
 Rows are frame rows of a kind of :data:`dabjax_torch.ofdm.demod.KINDS`
 (held to :func:`dabjax_torch.ofdm.demod.check_rows`).  Given the same CFO
@@ -39,7 +45,8 @@ from dabjax_torch.constants import DabParams
 # demod imports this module too; only its functions are read, at call time
 from dabjax_torch.ofdm import demod, tables
 
-__all__ = ["ENTRIES", "guard_corr", "mix_windows", "dqpsk_soft"]
+__all__ = ["ENTRIES", "guard_corr", "mix_windows", "dqpsk_soft",
+           "coarse_cfo", "MAX_SEARCH"]
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _f = ctypes.c_float
@@ -50,7 +57,12 @@ ENTRIES = {"dabjax_demod_guard_corr": (_vp, _i, _ll, _i, _i, _i, _i, _i, _f,
            "dabjax_demod_mix_windows": (_vp, _i, _ll, _i, _i, _i, _i, _f,
                                         _vp, _vp),
            "dabjax_demod_dqpsk_soft": (_vp, _vp, _i, _i, _i, _i, _i, _i, _f,
-                                       _vp, _vp, _ll, _vp, _ll)}
+                                       _vp, _vp, _ll, _vp, _ll),
+           "dabjax_demod_coarse_cfo": (_vp, _ll, _i, _i, _i, _i, _vp, _vp)}
+
+#: the widest coarse search the kernel takes: 2 search + 1 shifts, 9 a
+#: warp, at most 32 warps a block
+MAX_SEARCH = (32 * 9 - 1) // 2
 
 
 def _cuda_rows(rows: torch.Tensor, p: DabParams, kind: str) -> int:
@@ -146,3 +158,34 @@ def dqpsk_soft(spec: torch.Tensor, cfo: torch.Tensor, p: DabParams,
                   p.T_s, p.T_u, p.L, p.K, p.fic_symbols, _w(fs),
                   cfo.data_ptr(), fic_out.data_ptr(), fic_out.stride(0),
                   msc_out.data_ptr(), msc_out.stride(0))
+
+
+def coarse_cfo(spec0: torch.Tensor, p: DabParams, search: int = 35
+               ) -> torch.Tensor:
+    """int32 [F]: each frame's coarse CFO in carriers, +-``search``, from
+    its PRS spectrum ``spec0`` (complex64 [F, T_u] on a card, each row's
+    bins contiguous, rows at any stride: the FFT's output holds them one
+    frame apart; F <= 65535)."""
+    F = spec0.shape[0] if spec0.dim() == 2 else 0
+    if (spec0.dtype != torch.complex64 or spec0.dim() != 2
+            or spec0.shape[1] != p.T_u or F < 1):
+        raise ValueError(f"coarse_cfo: need complex64 [F >= 1, {p.T_u}], got "
+                         f"{spec0.dtype} {tuple(spec0.shape)}")
+    if spec0.stride(1) != 1 or spec0.is_conj():
+        raise ValueError(f"coarse_cfo: a row's bins must be contiguous, "
+                         f"not a conjugate view; got strides "
+                         f"{spec0.stride()} for {tuple(spec0.shape)}")
+    if F > 65535:
+        raise ValueError(f"coarse_cfo: at most 65535 frames, got {F}")
+    if not 0 <= search <= MAX_SEARCH:
+        raise ValueError(f"coarse_cfo: search in [0, {MAX_SEARCH}], got "
+                         f"{search}")
+    if not spec0.is_cuda:
+        raise ValueError(f"coarse_cfo: CUDA tensor required, got "
+                         f"{spec0.device}")
+    ref = demod._coarse_ref(p.mode, p.T_u, p.K, spec0.device)
+    out = torch.empty(F, dtype=torch.int32, device=spec0.device)
+    _build.launch("coarse_cfo", ENTRIES, "dabjax_demod_coarse_cfo",
+                  spec0.device, spec0.data_ptr(), spec0.stride(0), F,
+                  p.T_u, p.K, search, ref.data_ptr(), out.data_ptr())
+    return out

@@ -733,6 +733,219 @@ def test_demod_kernels_refuse_bad_input_on_card():
     assert _launched(*DEMOD) == (0, 0, 0)
 
 
+# ------------------------------------------------------------ coarse CFO
+
+def _coarse_scores(spec0, p, search=35):
+    """float32 [F, 2 search + 1]: the plain chain's scores
+    (``coarse_cfo_estimate_torch`` up to its argmax)."""
+    from dabjax_torch.ofdm import demod
+    ref = demod._coarse_ref(p.mode, p.T_u, p.K, spec0.device)
+    idx = demod._coarse_index(p.T_u, p.K, search, spec0.device)
+    s = torch.roll(spec0, p.T_u // 2, dims=-1)
+    d = s[..., :-1] * torch.conj(s[..., 1:])
+    return torch.abs(torch.sum(d[..., idx] * torch.conj(ref), dim=-1))
+
+
+def _coarse_pair(spec0, p):
+    """(kernel, plain chain) offsets of ``spec0``, synchronised."""
+    from dabjax_torch.ofdm import demod
+    got = demod.coarse_cfo_estimate(spec0, p)
+    want = demod.coarse_cfo_estimate_torch(spec0, p)
+    torch.cuda.synchronize()
+    return got.cpu(), want.cpu()
+
+
+def _shifted_refs(p, offsets, sigma, seed, dev):
+    """complex64 [len(offsets), T_u] on the card: the PRS reference moved
+    ``offsets`` carriers up, plus complex noise of std ``sigma``."""
+    from dabjax_torch.ofdm import tables
+    rng = np.random.default_rng(seed)
+    ref = tables.phase_ref_bins(p.mode, p.T_u, p.K)
+    n = len(offsets)
+    x = np.stack([np.roll(ref, o) for o in offsets]) + sigma * (
+        rng.standard_normal((n, p.T_u)) + 1j * rng.standard_normal(
+            (n, p.T_u)))
+    return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dabplus12_eep3a", "dabplus12_eep3a_lband"])
+def test_coarse_cfo_kernel_on_golden_spectra_on_card(name):
+    """The PRS spectra of a benchmark loop's frames (Mode I, Mode II; no
+    CFO in the signal), each also rolled by every offset in -35..35:
+    the kernel gives the chain's offsets frame by frame, and they are the
+    offsets; one launch a call, counted."""
+    from dabjax_torch.ofdm import demod
+    dev = _card()
+    _, _, p, _, frames = _bench_loop(name)
+    rows = frames.to(dev)
+    spec0 = demod.demodulate_rows(rows, torch.zeros(rows.shape[0],
+                                                    device=dev), p,
+                                  "u8").spec0
+    offs = np.arange(-35, 36)
+    rolled = torch.stack([torch.roll(spec0[i % spec0.shape[0]], int(o))
+                          for i, o in enumerate(offs)])
+    _build.LAUNCHES.clear()
+    got, want = _coarse_pair(spec0, p)
+    assert _build.LAUNCHES["coarse_cfo"] == 1
+    assert torch.equal(got, want) and not got.any()
+    got, want = _coarse_pair(rolled, p)
+    assert torch.equal(got, want)
+    assert got.tolist() == offs.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_coarse_cfo_kernel_on_every_offset_on_card(mode):
+    """The PRS reference moved by every offset in -35..35 under noise
+    (Mode III's band runs past the spectrum's edges there: clamped reads)
+    and F up to 1,440 frames: the kernel gives the chain's offsets, and
+    outside Mode III the offsets themselves."""
+    dev = _card()
+    from dabjax_torch.constants import get_mode
+    p = get_mode(mode)
+    offs = np.tile(np.arange(-35, 36), 21)[:1440]
+    for F in (1, 4, 71, 1440):
+        spec = _shifted_refs(p, offs[:F], 0.5, seed=mode * 10 + F, dev=dev)
+        got, want = _coarse_pair(spec, p)
+        assert torch.equal(got, want), F
+        if mode != 3:
+            assert got.tolist() == offs[:F].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_coarse_cfo_kernel_on_random_spectra_on_card(mode):
+    """Complex noise spectra (no PRS, so the scores lie close together):
+    the kernel gives the chain's offset on every frame whose best two
+    chain scores differ by more than 1e-5 of the best; those are nearly
+    all frames."""
+    from dabjax_torch.constants import get_mode
+    dev = _card()
+    p = get_mode(mode)
+    g = torch.Generator(device=dev).manual_seed(mode)
+    spec = torch.randn((1024, p.T_u), dtype=torch.complex64, device=dev,
+                       generator=g)
+    got, want = _coarse_pair(spec, p)
+    top2 = torch.topk(_coarse_scores(spec, p), 2, dim=-1).values.cpu()
+    apart = (top2[:, 0] - top2[:, 1]) > 1e-5 * top2[:, 0]
+    assert int(apart.sum()) >= 1000
+    assert torch.equal(got[apart], want[apart])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_coarse_cfo_kernel_exact_ties_on_card(mode):
+    """Exact ties go to the first shift, as torch.argmax gives them: zero
+    and constant spectra score every shift alike (-35); a spectrum that
+    repeats every 8 bins repeats its candidates every 8 shifts, so its
+    best offset lies in -35..-28 (outside Mode III, whose clamped edge
+    breaks the period)."""
+    from dabjax_torch.constants import get_mode
+    dev = _card()
+    p = get_mode(mode)
+    flat = torch.stack([torch.zeros(p.T_u, dtype=torch.complex64),
+                        torch.ones(p.T_u, dtype=torch.complex64),
+                        torch.full((p.T_u,), 0.5 - 2j,
+                                   dtype=torch.complex64)]).to(dev)
+    got, want = _coarse_pair(flat, p)
+    assert got.tolist() == want.tolist() == [-35] * 3
+    if mode == 3:
+        return
+    rng = np.random.default_rng(mode)
+    g = rng.standard_normal((16, 8)) + 1j * rng.standard_normal((16, 8))
+    spec = torch.from_numpy(np.tile(g, p.T_u // 8).astype(np.complex64))
+    got, want = _coarse_pair(spec.to(dev), p)
+    assert torch.equal(got, want)
+    assert bool(((got >= -35) & (got <= -28)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_coarse_cfo_kernel_nan_on_card(mode):
+    """A NaN bin in the band makes NaN the scores of the shifts that read
+    its products, and the first of those wins, as in torch.argmax; at the
+    band's low edge, in its middle, past its upper edge and outside it,
+    the kernel gives the chain's offsets."""
+    from dabjax_torch.constants import get_mode
+    dev = _card()
+    p = get_mode(mode)
+    lo = p.T_u // 2 - p.K // 2
+    rolled = sorted({max(lo - 35, 0), lo, lo + p.K // 2,
+                     min(lo - 35 + p.K + 40, p.T_u - 1), p.T_u - 1, 0})
+    spec = _shifted_refs(p, [7] * len(rolled), 0.3, seed=mode, dev=dev)
+    for i, m in enumerate(rolled):
+        spec[i, (m + p.T_u // 2) % p.T_u] = float("nan")
+    got, want = _coarse_pair(spec, p)
+    assert torch.equal(got, want)
+    assert got[rolled.index(lo + p.K // 2)] == -35
+
+
+def _coarse_replay_trace():
+    """A ``BlockFn`` captured at 12 Mode I frames, then three replays
+    under the profiler: ``LAUNCHES["coarse_cfo"]`` over the replays, the
+    replays' kernel names, the names of the plain chain's gathers (its
+    own trace at the same spectrum) and the last replay's coarse tap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from dabjax_torch.ofdm import demod
+    from dabjax_torch.runtime.receiver import BlockFn
+    dev = _card()
+    _, _, p, _, frames = _bench_loop("dabplus12_eep3a")
+    rows, coarse = frames[:12].to(dev), torch.zeros(12, device=dev)
+    fn = BlockFn(p, "u8", device=dev)
+    fn.frames(rows, coarse)
+    fn.frames(rows, coarse)
+    assert fn._graph.captured
+    spec0 = demod.demodulate_rows(rows, coarse, p, "u8").spec0
+    torch.cuda.synchronize()
+
+    def kernels(prof):
+        return [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+
+    with profile(activities=[ProfilerActivity.CUDA]) as chain:
+        demod.coarse_cfo_estimate_torch(spec0, p)
+        torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as replays:
+        for _ in range(3):
+            shard = fn.frames(rows, coarse)
+        torch.cuda.synchronize()
+    return {"launches": _build.LAUNCHES["coarse_cfo"],
+            "names": kernels(replays),
+            "gathers": [n for n in kernels(chain) if "index" in n],
+            "coarse": shard["coarse"].tolist()}
+
+
+@pytest.mark.cuda
+def test_block_graph_replays_coarse_cfo_on_card():
+    """A captured ``BlockFn`` replays the coarse-CFO kernel: three replays
+    count three launches in ``LAUNCHES["coarse_cfo"]`` and show three in
+    the device trace, and none of the plain chain's gather kernels runs
+    there (the chain's own trace names them).  Traced in a fresh process:
+    after the rest of this file had run in one process, the chain's trace
+    there held no gather kernel."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    _card()
+    here = pathlib.Path(__file__).resolve()
+    code = (f"import json, sys; sys.path[:0] = [{str(here.parent)!r}, "
+            f"{str(here.parents[1])!r}]; import test_torch_card as t; "
+            f"print(json.dumps(t._coarse_replay_trace()))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["gathers"]
+    assert got["launches"] == 3
+    assert sum("coarse_cfo" in n for n in got["names"]) == 3
+    assert not set(got["gathers"]) & set(got["names"])
+    assert got["coarse"] == [0] * 12
+
+
 # ------------------------------------------------------------ CUDA graphs
 
 def _bench_loop(name, seed=2024):

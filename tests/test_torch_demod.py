@@ -210,3 +210,117 @@ def test_demod_entry_checks_rows_on_cpu():
                      torch.zeros((2, p.L - 1 - p.fic_symbols, 2 * p.K)))):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+def _coarse_spectra(p, iq, seed):
+    """complex64 PRS spectra [14, T_u]: two frames of the golden IQ, the
+    PRS reference shifted by -35, -34, -1, 0, 1, 34 and 35 carriers
+    under noise, and five of complex noise alone."""
+    from dabjax_torch.ofdm import tables
+    u0 = acq_jax.acquire(iq, p)
+    need = demod.min_frame_samples(p)
+    rows = np.stack([iq[u0 + f * p.T_F: u0 + f * p.T_F + need]
+                     for f in range(2)])
+    _, s0 = demod.demodulate_frames(torch.from_numpy(rows), p)
+    rng = np.random.default_rng(seed)
+
+    def noise(n):
+        return rng.standard_normal((n, p.T_u)) \
+            + 1j * rng.standard_normal((n, p.T_u))
+
+    ref = tables.phase_ref_bins(p.mode, p.T_u, p.K)
+    shifts = (-35, -34, -1, 0, 1, 34, 35)
+    shifted = np.stack([np.roll(ref, s) for s in shifts]) + 0.3 * noise(7)
+    return torch.cat([s0, torch.from_numpy(
+        np.concatenate([shifted, noise(5)]).astype(np.complex64))])
+
+
+def test_coarse_cfo_on_cpu_is_the_plain_chain(golden):
+    """On a CPU tensor ``coarse_cfo_estimate`` is
+    ``coarse_cfo_estimate_torch`` and equals dabjax's filter, frame by
+    frame, on real PRS spectra, shifted references (the search's ends
+    included; Mode III's clamped edge) and noise; no kernel counted."""
+    from dabjax_torch import _build
+    p, iq = golden
+    spec = _coarse_spectra(p, iq, seed=p.mode)
+    _build.LAUNCHES.clear()
+    got = demod.coarse_cfo_estimate(spec, p)
+    want = demod.coarse_cfo_estimate_torch(spec, p)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(demod_jax.coarse_cfo_estimate(
+            jnp.asarray(spec.numpy()), p)))
+    if p.mode != 3:   # Mode III's +-35 search runs past the band edge
+        assert got[2:9].tolist() == [-35, -34, -1, 0, 1, 34, 35]
+    assert _build.LAUNCHES["coarse_cfo"] == 0
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on a card: the wrapper's checks and
+    its launch arguments, without one."""
+    is_cuda = property(lambda self: True)
+
+
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_coarse_cfo_wrapper_refuses_bad_input(mode):
+    """``demod_cuda.coarse_cfo`` raises before any launch on a CPU
+    tensor, a dtype other than complex64, a row of another length than
+    T_u, rows whose bins are not contiguous or are a conjugate view,
+    more than 65535 frames (a meta tensor: no memory) and a search it
+    cannot take."""
+    from dabjax_torch import _build
+    from dabjax_torch.ofdm import demod_cuda
+    p = get_mode(mode)
+    spec = torch.zeros((4, p.T_u), dtype=torch.complex64)
+    bad = {"CUDA": spec,
+           "complex64": [spec.to(torch.complex128), spec.real,
+                         spec[0], spec[:, :-1], spec.repeat(1, 2),
+                         spec[:0]],
+           "contiguous": [torch.zeros((4, 2 * p.T_u),
+                                      dtype=torch.complex64)[:, ::2],
+                          torch.zeros((p.T_u, 4),
+                                      dtype=torch.complex64).t(),
+                          spec.conj()],
+           "65535": torch.empty((65536, p.T_u), dtype=torch.complex64,
+                                device="meta").as_subclass(_OnCard)}
+    _build.LAUNCHES.clear()
+    for match, cases in bad.items():
+        for case in cases if isinstance(cases, list) else [cases]:
+            with pytest.raises(ValueError, match=match):
+                demod_cuda.coarse_cfo(case.as_subclass(_OnCard)
+                                      if match != "CUDA" else case, p)
+    for search in (-1, demod_cuda.MAX_SEARCH + 1):
+        with pytest.raises(ValueError, match="search"):
+            demod_cuda.coarse_cfo(spec.as_subclass(_OnCard), p, search)
+    assert _build.LAUNCHES["coarse_cfo"] == 0
+
+
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_coarse_cfo_entry_is_declared_and_launched(mode, monkeypatch):
+    """``ENTRIES`` declares the kernel's C entry, and the wrapper hands
+    ``_build.launch`` one argument of the declared kind for each:
+    the spectrum, its row stride (a row view of the FFT's [F, L, T_u]
+    output is taken as it is), F, T_u, K, the search, the reference
+    products and the int32 output."""
+    import ctypes
+    from dabjax_torch.ofdm import demod_cuda
+    p = get_mode(mode)
+    want = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+    assert demod_cuda.ENTRIES["dabjax_demod_coarse_cfo"] == want
+    calls = []
+    monkeypatch.setattr(demod_cuda._build, "launch",
+                        lambda *a: calls.append(a))
+    spec = torch.zeros((3, p.L, p.T_u), dtype=torch.complex64)[:, 0]
+    out = demod_cuda.coarse_cfo(spec.as_subclass(_OnCard), p)
+    (key, entries, name, device, *args), = calls
+    assert (key, name, device) == ("coarse_cfo", "dabjax_demod_coarse_cfo",
+                                   torch.device("cpu"))
+    assert entries is demod_cuda.ENTRIES
+    ref = demod._coarse_ref(p.mode, p.T_u, p.K, torch.device("cpu"))
+    assert args == [spec.data_ptr(), p.L * p.T_u, 3, p.T_u, p.K, 35,
+                    ref.data_ptr(), out.data_ptr()]
+    for arg, ctype in zip(args, want):
+        ctype(arg)
+    assert out.dtype == torch.int32 and out.shape == (3,)
+    assert p.K % 3 == 0     # the kernel's carriers a lane at a time

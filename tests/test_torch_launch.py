@@ -62,7 +62,7 @@ PROTOTYPES = _prototypes()
 
 
 def test_every_kernel_source_has_entries():
-    assert len(PROTOTYPES) == 18
+    assert len(PROTOTYPES) == 19
     assert {n.split("_")[1] for n in PROTOTYPES} == {"viterbi", "demod",
                                                      "msc", "probe"}
 
