@@ -1,0 +1,22 @@
+"""Ms a block of garbage collection in the traced window: the union of
+the process's ``gc`` span records (``profiling.records``), over the
+window's blocks.  None on a program that keeps no records, when the ring
+overflowed, or when it holds no record of the receiver's spans."""
+
+from dabbench.trace import union_seconds
+
+UNIT = "ms/block"
+
+
+def read(ctx):
+    from dabjax_torch.runtime import profiling
+    records = getattr(profiling, "records", None)
+    if records is None or profiling.overflow() or not ctx.blocks:
+        return None
+    recs = records()
+    if not any(r.name in profiling.SPANS and not r.name.startswith("bank_")
+               for r in recs):
+        return None
+    gc = [(r.start_ns * 1e-3, r.end_ns * 1e-3) for r in recs
+          if r.name == "gc"]
+    return union_seconds(gc) * 1e3 / ctx.blocks

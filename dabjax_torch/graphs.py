@@ -21,7 +21,10 @@ fixes the work's shapes:
 The kernel wrappers count their launches in ``_build.LAUNCHES``.  A
 capture counts them once and launches nothing, and the replay that
 follows it launches them once; each later replay adds the counts its
-capture made.
+capture made.  Each capture, through whatever backend, is one
+``capture`` span of :data:`dabjax_torch.runtime.profiling.PROCESS`:
+its ``calls`` count the process's captures (replays are not counted),
+and a profiler records each.
 
 Only CUDA tensors are captured: on any other device :meth:`BlockGraph.
 backend` is None and the callers run their eager code, untouched.
@@ -36,6 +39,7 @@ from typing import Callable, Hashable, Optional, Sequence, Tuple
 import torch
 
 from dabjax_torch import _build
+from dabjax_torch.runtime.profiling import PROCESS
 
 __all__ = ["BlockGraph", "CudaCapture", "layout"]
 
@@ -145,8 +149,9 @@ class BlockGraph:
         this is the key's second call or the inputs moved."""
         if self._replay is None:
             before = _build.LAUNCHES.copy()
-            self._replay, self._out = self.backend(device).capture(fn,
-                                                                   device)
+            with PROCESS.stage("capture"):
+                self._replay, self._out = self.backend(device).capture(
+                    fn, device)
             self._added = _build.LAUNCHES - before
             return self._out
         self._replay()

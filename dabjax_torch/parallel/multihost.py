@@ -10,6 +10,7 @@ share a single device-to-host copy per block period.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -35,7 +36,9 @@ class MultiReceiver:
     bank's spans of :data:`dabjax_torch.runtime.profiling.SPANS`, one of
     each: ``bank_stage`` (items: channels staged), ``bank_pull`` (items:
     bytes pulled) and ``bank_consume``; each channel's receiver times its
-    own spans inside them."""
+    own spans inside them.  ``step()`` numbers its periods: while a
+    profiler records spans, the bank's carry the period's number and the
+    owner ``"bank"``."""
 
     def __init__(self, sources: Dict[str, object], config=None,
                  data_handler_factory=None, *, device):
@@ -55,7 +58,8 @@ class MultiReceiver:
                            data_handler_factory=data_handler_factory,
                            audio_pool=self._pool, device=device)
             for name, src in sources.items()}
-        self.profiler = StageProfiler()
+        self.profiler = StageProfiler(owner="bank")
+        self._periods = itertools.count()
 
     def _pull(self, bank: torch.Tensor) -> np.ndarray:
         """The bank's one device-to-host copy of a block period."""
@@ -65,6 +69,7 @@ class MultiReceiver:
         """Stage every live channel, pull the joined bank blob once, then
         consume per channel.  Returns {channel: progressed}."""
         prof = self.profiler
+        prof.block = next(self._periods)
         blks = {}
         with prof.stage("bank_stage") as span:
             for name, rx in self.rx.items():

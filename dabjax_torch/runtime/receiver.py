@@ -18,7 +18,10 @@ IQ is uploaded as raw uint8 pairs when the source offers ``read_u8``
 
 Each block's host work is timed by ``self.profiler`` in the spans that
 :data:`dabjax_torch.runtime.profiling.SPANS` names, one of each a block
-once locked (``msc`` only when audio or data is decoded).
+once locked (``msc`` only when audio or data is decoded).  ``stage()``
+numbers its blocks (``_Blk.seq``); while a profiler records spans, those
+of ``stage()`` and of ``consume(blk)`` carry that number and the
+receiver's ``_chan_tag``, and the source's reads while acquiring none.
 """
 
 from __future__ import annotations
@@ -176,6 +179,8 @@ class _Blk:
     n_fib: int
     buckets: List[Tuple]                # [(geoms, dev_shape)]
     warmup: int
+    seq: int                            # the receiver's block number
+    stream: object                      # the CUDA stream it was issued on
 
 
 class BlockFn(nn.Module):
@@ -321,6 +326,8 @@ class Receiver:
         self._audio_pools: Dict[int, object] = {}
         self._audio_futs: List[object] = []
         self._chan_tag = next(Receiver._next_tag)
+        self.profiler.owner = self._chan_tag
+        self._seq = itertools.count()   # block numbers (_Blk.seq)
         self._proc_pool = audio_pool
         self._own_pool = False
         self._pool_meta: Dict[int, Tuple[int, bool]] = {}
@@ -536,6 +543,7 @@ class Receiver:
 
     def acquire(self) -> bool:
         p = self.p
+        self.profiler.block = None
         for _ in range(self.cfg.scan_attempts):
             if not self._ensure(self._buf_base + 2 * p.T_F + p.T_null
                                 + p.T_u):
@@ -583,6 +591,7 @@ class Receiver:
         F = self.cfg.frames_per_block
         if self._u0 is None and not self.acquire():
             return None
+        seq = self.profiler.block = next(self._seq)
         need = demod.min_frame_samples(p)
         pos = np.round(self._u0
                        + np.arange(F) * self._frame_len).astype(np.int64)
@@ -622,8 +631,11 @@ class Receiver:
             merged = blob
         n_fib = fic_codewords_per_frame(p) * fic_profile(p)[2]
         n_taps = 5 * F + F * n_fib + p.T_u + 2 * p.K
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
         blk = _Blk(F=F, merged=merged, n_taps=n_taps, n_fib=n_fib,
-                   buckets=bucket_meta, warmup=warmup)
+                   buckets=bucket_meta, warmup=warmup, seq=seq,
+                   stream=stream)
         # advance to the next block now (predictive); consume() applies the
         # measured intercept/slope corrections before the next stage()
         self._u0 += F * self._frame_len
@@ -634,11 +646,17 @@ class Receiver:
 
     def consume(self, blk: _Blk, big: Optional[np.ndarray] = None) -> None:
         """Pull the block's merged blob (the one device sync) and do every
-        piece of host processing."""
+        piece of host processing.  ``pull`` waits for the block's device
+        work first (``pull_wait``: the stream it was issued on
+        synchronized), then copies the blob."""
         p = self.p
         F = blk.F
+        self.profiler.block = blk.seq
         if big is None:
             with self.profiler.stage("pull", items=F * p.T_F):
+                with self.profiler.stage("pull_wait"):
+                    if blk.stream is not None:
+                        blk.stream.synchronize()
                 big = blk.merged.cpu().numpy()
         with self.profiler.stage("consume_host", items=F * p.T_F):
             self._consume_parsed(blk, big)

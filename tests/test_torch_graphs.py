@@ -21,6 +21,7 @@ from dabjax_torch.msc.subchannel import EnsembleDecoder, SubchGeometry
 from dabjax_torch.ofdm import demod
 from dabjax_torch.parallel.mesh import make_mesh
 from dabjax_torch.parallel.multihost import MultiReceiver
+from dabjax_torch.runtime import profiling
 from dabjax_torch.runtime.config import ReceiverConfig
 from dabjax_torch.runtime.receiver import BlockFn, Receiver
 from dabjax_torch.testing import LoopSource, golden_modulator
@@ -108,6 +109,36 @@ def test_graph_is_captured_at_a_keys_second_call_and_replayed(stand_in):
     assert (back.eagers, back.captures, g.captured) == (2, 2, False)
     _call(g, "k2", (y,), lambda: y - 1)
     assert (back.captures, g.captured) == (3, True)
+
+
+def _captures():
+    st = profiling.PROCESS.stages.get("capture")
+    return st.calls if st is not None else 0
+
+
+def test_captures_are_counted_and_recorded_replays_are_not(stand_in):
+    """Each capture, through the stand-in backend, adds one to the
+    process's count, always, and is one ``capture`` record while a
+    profiler runs; eager calls and replays add neither."""
+    from torch.profiler import ProfilerActivity, profile
+    g = graphs.BlockGraph()
+    x, y = torch.arange(4.0), torch.arange(4.0)
+    before = _captures()
+    _call(g, "k", (x,), lambda: x * 2)          # eager
+    _call(g, "k", (x,), lambda: x * 2)          # captured, unrecorded
+    assert _captures() == before + 1
+    profiling.clear_records()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):                      # replays
+            _call(g, "k", (x,), lambda: x * 2)
+        _call(g, "k", (y,), lambda: y * 2)      # captured on y
+        _call(g, "k", (y,), lambda: y * 2)
+    back = stand_in[id(g)]
+    assert (back.captures, back.replays) == (2, 4)
+    assert _captures() == before + 2
+    caps = [r for r in profiling.records() if r.name == "capture"]
+    assert len(caps) == 1
+    assert (caps[0].owner, caps[0].block, caps[0].parent) == (None, None, -1)
 
 
 def test_graph_takes_cpu_tensors_only_through_a_stand_in():
@@ -382,6 +413,28 @@ def test_receiver_replays_equal_its_eager_blocks(iq, eager_run, stand_in):
     msc = stand_in[id(decoder._graph)]
     assert msc.captures == 1 and msc.replays >= 1
     assert rx._cif_hist is decoder._hist
+
+
+def test_receiver_captures_are_recorded_in_the_spans_that_made_them(
+        iq, stand_in):
+    """A receiver traced from its first block: its two captures (the
+    block graph's, the MSC chain's) are ``capture`` records of no block,
+    each under the ``blockgraph`` or ``msc`` span that made it."""
+    from torch.profiler import ProfilerActivity, profile
+    rx, _ = _receiver(iq)
+    profiling.clear_records()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            _blocks(rx, BLOCKS)
+    finally:
+        rx.close()
+    recs = profiling.records()
+    by_id = {r.id: r for r in recs}
+    caps = [r for r in recs if r.name == "capture"]
+    assert sorted(by_id[r.parent].name for r in caps) == ["blockgraph",
+                                                          "msc"]
+    assert all(r.block is None for r in caps)
+    assert all(by_id[r.parent].owner == rx._chan_tag for r in caps)
 
 
 SHIFT = 7 * get_mode(1).T_F // 3        # channel b starts elsewhere
